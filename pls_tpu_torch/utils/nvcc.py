@@ -1,0 +1,75 @@
+"""Build a CUDA source of this package with nvcc and load it with ctypes.
+
+A source under `pls_tpu_torch/csrc/` is compiled for Hopper (`sm_90a`)
+into a shared library with a plain C interface, at first use, in
+`build/pls_tpu_torch/` beside the package.  The library's name carries a
+hash of the source and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  nvcc's output (with `-Xptxas -v`: each
+kernel's registers, shared memory and spills) is kept beside the library
+as `<name>.log`.  Nothing here runs when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "pls_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    """nvcc from CUDA_HOME (or CUDA_PATH), else from PATH."""
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        home = os.environ.get(var)
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: set CUDA_HOME to the CUDA toolkit or put nvcc on PATH"
+        )
+    return found
+
+
+def library_path(source: str) -> Path:
+    """Where the library built from csrc/<source> lives for this source text."""
+    src = PACKAGE_DIR / "csrc" / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def load_library(source: str) -> ctypes.CDLL:
+    """Build csrc/<source> if its library is missing, then load it.  A
+    failed build raises RuntimeError with nvcc's stderr."""
+    out = library_path(source)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(PACKAGE_DIR / "csrc" / source)],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on csrc/{source} (exit {proc.returncode}):\n{proc.stderr}"
+                )
+            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, out)  # atomic: a reader never sees half a library
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return ctypes.CDLL(str(out))
