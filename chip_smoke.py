@@ -4,14 +4,25 @@
     python3 chip_smoke.py [--seed 0]
 
 Phases, each of which fails the run:
-  1. device: the card, torch/CUDA versions, TF32 off; build the CUDA
-     deflation kernel from csrc/deflate.cu and time the build;
+  1. device: the card, torch/CUDA versions, TF32 off; build the two CUDA
+     sources, csrc/deflate.cu (K1/K2) and csrc/deflate_variants.cu
+     (K3-K5), with one nvcc each started together; print their ptxas
+     register and spill lines and the build time;
   2. kernel vs plain: the f32 (K1) and bf16 (K2) kernels against
      `deflate_pass_plain` on the same inputs and against f64 truth on the
      card, at every shape the main path gives them (toy 10×15, nir 60×401,
      100000×5000) and at (130, 96), (300, 401), (4096, 5000) and a K too
      wide for the staged form (2048, 30000); relative error of t, p and
-     tt ≤ 1e-5 against both, and two launches bit-identical;
+     tt ≤ 1e-5 against both, and two launches bit-identical; then every
+     variant of the kernel-variant sweep's default lists (K3, K4 at
+     DEFAULT/HIGH/HIGHEST, K5) against its plain version and f64 at
+     10×15, 130×96, 300×401 (scalar staging), 4096×5000 and 65536×2048,
+     two launches bit-identical: K3, K5 and K4-HIGHEST ≤ 1e-5 against
+     both; K4 DEFAULT/HIGH ≤ 1e-5 in t and tt against plain, p ≤ 1e-5
+     against the plain second product on the kernel's own t (and at
+     HIGH against the whole plain chain), and within 10× the plain
+     emulation's own error against f64; at DEFAULT a control, p with t
+     left unrounded, must fall outside 1e-5;
   3. main path on real data: the port's CLI on nir/octane (A=10) and toy
      (A=2) in float32, tables against tests/golden, optimal component
      counts equal, and exactly A kernel launches per fit;
@@ -22,12 +33,20 @@ Phases, each of which fails the run:
   5. timing with CUDA events (median of 25 after warm-up) at 100000×5000:
      K1, K2, the plain two-product form in f32 and in bf16-upcast, the
      card's device-to-device copy ceiling, and the 20-component fit; and
-     the wide-K form of K1 and K2 against the plain form at 20000×30000.
+     the wide-K form of K1 and K2 against the plain form at 20000×30000;
+  6. the sweep path: `pls_tpu_torch.tools.kernel_variants.sweep` at its
+     default 65536×2048 and at 100000×5000, in f32 and in bf16, printing
+     its tables (every variant beside the shipped kernel, the plain form
+     and the copy ceiling), each row's err_p and err_tt against f64
+     within its bound (SWEEP_RTOL); each of K3-K5 must launch.
 
-The kernel launch counts are set to 0 just before phase 3 and read just
-after phase 4.  The last two lines of stdout are the kernels' JSON record
-and {"ok": true, "device": {...}}; without a CUDA device, or outside a
-checkout of the repo, the script exits non-zero and prints neither.
+The K1/K2 launch counts are set to 0 just before phase 3 and read just
+after phase 4; the K3-K5 counts just before and after phase 6.  The last
+two lines of stdout are the kernels' JSON record (K1-K5; K3-K5's ms is
+the best variant's at 65536×2048) and {"ok": true, "device": {...}};
+the card's nvidia-smi line is printed in phase 1.  Without a CUDA device,
+or outside a checkout of the repo, the script exits non-zero and prints
+neither.
 """
 
 from __future__ import annotations
@@ -41,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -69,6 +89,26 @@ BIG = (100_000, 5_000)
 # every (N, K) the main path hands the kernel: toy, nir, the real-size fit
 MAIN_PATH_SHAPES = [(10, 15), (60, 401), BIG]
 WIDE = (20_000, 30_000)  # K past the staged form: the two-pass wide-K form
+# phase 6: the kernel-variant sweep's path
+SWEEP = (65_536, 2_048)  # the sweep's default size
+SWEEP_ITERS = 10
+# (300, 401): K % 4 != 0, the scalar staging path
+VARIANT_SHAPES = [(10, 15), (130, 96), (300, 401), (4096, 5000), SWEEP]
+# the sweep's err_p and err_tt, against f64 of the float32 X: 1e-5 for the
+# exact-f32 rows; K4 HIGH drops the lo·lo term, 2⁻¹⁶ of each product;
+# DEFAULT rounds X, r and t to bf16, 2⁻⁹ each; with KV_BF16 every row sees
+# X rounded to bf16.
+SWEEP_RTOL = {"mxu_HIGH": 1e-4, "mxu_DEFAULT": 1e-2}
+SWEEP_BF16_RTOL = 2.0 ** -8
+
+# (kernel name, its source in pls_tpu_torch/csrc, the TPU kernel it replaces)
+KERNELS = [
+    ("deflate_f32", "deflate.cu", "pls_tpu/ops/deflate.py:83"),
+    ("deflate_bf16", "deflate.cu", "pls_tpu/ops/deflate.py:102"),
+    ("vpu_f32", "deflate_variants.cu", "tools/kernel_variants.py:72"),
+    ("mxu_f32", "deflate_variants.cu", "tools/kernel_variants.py:153"),
+    ("vpu_bf16", "deflate_variants.cu", "tools/kernel_variants.py:208"),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -155,9 +195,8 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def phase_device(deflate) -> str:
-    smi = nvidia_smi()
-    print(smi)
+def phase_device(deflate, variants) -> None:
+    print(nvidia_smi())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -167,15 +206,17 @@ def phase_device(deflate) -> str:
     from pls_tpu_torch.utils.nvcc import library_path
 
     t0 = time.perf_counter()
-    deflate.build()
-    print(f"kernel build+load {time.perf_counter() - t0:.2f} s "
-          f"({library_path('deflate.cu').name})")
-    log = library_path("deflate.cu").with_suffix(".log")
-    if log.exists():
-        for ln in log.read_text().splitlines():
-            if "registers" in ln or "spill" in ln:
-                print("  ptxas:", ln.strip())
-    return smi
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        for fut in [pool.submit(deflate.build), pool.submit(variants.build)]:
+            fut.result()
+    print(f"kernels build+load {time.perf_counter() - t0:.2f} s")
+    for source in ("deflate.cu", "deflate_variants.cu"):
+        print(f"  {library_path(source).name}")
+        log = library_path(source).with_suffix(".log")
+        if log.exists():
+            for ln in log.read_text().splitlines():
+                if "entry function" in ln or "registers" in ln or "spill" in ln:
+                    print("  ptxas:", ln.strip())
 
 
 def phase_kernel(deflate, dev, seed: int) -> dict:
@@ -363,6 +404,130 @@ def phase_timing(deflate, dev, seed: int) -> dict:
     return out
 
 
+def _fmt(errs) -> str:
+    return "/".join(f"{e:.2e}" for e in errs)
+
+
+def _rel3(out, ref) -> tuple[float, float, float]:
+    """Relative errors of (t, p, tt) against a reference triple."""
+    (t, tt, p), (tr, ttr, pr) = out, ref
+    return rel_err(t, tr), rel_err(p, pr), abs(float(tt) - float(ttr)) / abs(float(ttr))
+
+
+def phase_variants(dv, kv, dev, seed: int) -> dict:
+    """Every variant of the sweep's default lists against its plain version
+    and f64 truth, with a bit-identical relaunch.  Returns {kernel name:
+    max |kernel - plain| of t and p}."""
+    abs_err = {name: 0.0 for name in dv.launches}
+    variants = kv.default_variants(False) + kv.default_variants(True)
+    g = torch.Generator(dev).manual_seed(seed + 2)
+    for N, K in VARIANT_SHAPES:
+        X32 = torch.randn((N, K), generator=g, device=dev)
+        r = torch.randn(K, generator=g, device=dev)
+        truth = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            Xd = X32.to(dtype).double()  # f64 truth of the stored (rounded) X
+            td = Xd @ r.double()
+            truth[dtype] = (td, td @ td, Xd.T @ td)
+            del Xd
+        worst = [0.0] * 6  # VPU forms: t, p, tt vs plain, then vs f64
+        for v in variants:
+            X = X32.to(v.dtype)
+            out = v.cuda(X, r)
+            again = v.cuda(X, r)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                  f"{v.name} {N}x{K}: two launches differ")
+            check(tuple(out[0].shape) == (N,) and tuple(out[2].shape) == (K,)
+                  and out[1].dim() == 0 and all(o.dtype == torch.float32 for o in out),
+                  f"{v.name} {N}x{K}: output shapes / dtypes")
+            plain = v.plain(X, r)
+            q = _rel3(out, plain)
+            e = _rel3(out, truth[v.dtype])
+            budget = KERNEL_RTOL
+            if v.prec in ("DEFAULT", "HIGH"):
+                # against f64: within 10× the error of the plain emulation itself
+                budget = 10 * max(_rel3(plain, truth[v.dtype]))
+            if v.prec:
+                # K4's p against the plain second product on the kernel's own t
+                # (see mxu_plain_p); at DEFAULT the whole chain's p is printed
+                # only, as a last-bit flip of tᵢ can move its bf16 rounding
+                p_own = dv.mxu_plain_p(X, out[0], v.prec)
+                q_own = rel_err(out[2], p_own)
+                check(max(q[0], q_own, q[2]) <= KERNEL_RTOL,
+                      f"{v.name} {N}x{K}: vs plain rel err t {q[0]:.2e} p (own t) "
+                      f"{q_own:.2e} tt {q[2]:.2e} > {KERNEL_RTOL}")
+                line = f"p on own t {q_own:.2e}"
+                if v.prec == "DEFAULT":
+                    # the check's power: p with t left unrounded (a kernel that
+                    # skips t's bf16 re-rounding) must fall outside the bound
+                    ctrl = rel_err(X.to(torch.bfloat16).float().T @ out[0], p_own)
+                    check(ctrl > KERNEL_RTOL, f"{v.name} {N}x{K}: control {ctrl:.2e} "
+                          f"within {KERNEL_RTOL}: the p check cannot see t's rounding")
+                    line += f", control (t not re-rounded) {ctrl:.2e}"
+                else:
+                    check(q[1] <= KERNEL_RTOL,
+                          f"{v.name} {N}x{K}: vs plain rel err p {q[1]:.2e} > {KERNEL_RTOL}")
+                print(f"  {v.name} {N}x{K}: rel err t/p/tt vs plain {_fmt(q)}, {line}, "
+                      f"vs f64 {_fmt(e)} (budget {budget:.3e})")
+                del p_own
+            else:
+                check(max(q) <= KERNEL_RTOL,
+                      f"{v.name} {N}x{K}: vs plain rel err t/p/tt {_fmt(q)} > {KERNEL_RTOL}")
+                worst = [max(w, a) for w, a in zip(worst, q + e)]
+            check(max(e) <= budget,
+                  f"{v.name} {N}x{K}: vs f64 rel err t/p/tt {_fmt(e)} > {budget:.3e}")
+            abs_err[v.kind] = max(abs_err[v.kind], float(max(
+                (out[0] - plain[0]).abs().max(), (out[2] - plain[2]).abs().max())))
+            del X, out, again, plain
+        print(f"variants {N}x{K}: {len(variants)} variants, bit-identical relaunches; "
+              f"VPU forms' largest rel err t/p/tt vs plain {_fmt(worst[:3])}, "
+              f"vs f64 {_fmt(worst[3:])}")
+        del X32, truth
+        torch.cuda.empty_cache()
+    return abs_err
+
+
+def phase_sweep(kv, seed: int) -> dict:
+    """The sweep at its default size in f32 and bf16 and at the repo's full
+    size; returns {(n, k, bf16): rows}."""
+    tables = {}
+    for (n, k), bf16 in [(SWEEP, False), (SWEEP, True), (BIG, False), (BIG, True)]:
+        rows = kv.sweep(n, k, SWEEP_ITERS, bf16, seed)
+        failed = [row["name"] for row in rows if "error" in row]
+        check(not failed, f"sweep {n}x{k} bf16={bf16}: {failed} failed")
+        for row in rows[1:]:  # all but the copy: err_p, err_tt against f64 of the f32 X
+            tol = SWEEP_BF16_RTOL if bf16 else SWEEP_RTOL.get(row["name"].split("_r")[0],
+                                                              KERNEL_RTOL)
+            check(max(row["err_p"], row["err_tt"]) <= tol,
+                  f"sweep {n}x{k} {row['name']}: err_p {row['err_p']:.2e} "
+                  f"err_tt {row['err_tt']:.2e} > {tol}")
+        tables[(n, k, bf16)] = rows
+        torch.cuda.empty_cache()
+    return tables
+
+
+def best_variant_times(dv, kv, tables: dict, dev, seed: int) -> dict:
+    """{kernel name: (ms of its best variant at the sweep's default size,
+    ms of that variant's plain version on the same shape)}."""
+    out = {}
+    n, k = SWEEP
+    g = torch.Generator(dev).manual_seed(seed + 3)
+    X32 = torch.randn((n, k), generator=g, device=dev)
+    r = torch.randn(k, generator=g, device=dev)
+    for kind in dv.launches:
+        bf16 = kind == "vpu_bf16"
+        prefix = {"vpu_f32": "vpu_1k_", "mxu_f32": "mxu_", "vpu_bf16": "vpu_bf16_"}[kind]
+        rows = [row for row in tables[(n, k, bf16)] if row["name"].startswith(prefix)]
+        best = min(rows, key=lambda row: row["ms"])
+        v = next(v for v in kv.default_variants(bf16) if v.name == best["name"])
+        X = X32.to(v.dtype)
+        out[kind] = (best["ms"], median_ms(lambda: v.plain(X, r)))
+        print(f"{kind}: best variant at {n}x{k} {best['name']} {best['ms']:.4f} ms; "
+              f"its plain version {out[kind][1]:.4f} ms")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -372,15 +537,17 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import pls_tpu_torch
-    from pls_tpu_torch.ops import deflate
+    from pls_tpu_torch.ops import deflate, deflate_variants as dv
+    from pls_tpu_torch.tools import kernel_variants as kv
 
     check(Path(pls_tpu_torch.__file__).resolve().is_relative_to(ROOT),
           f"pls_tpu_torch imported from {pls_tpu_torch.__file__}, not this checkout")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    smi = phase_device(deflate)
+    phase_device(deflate, dv)
     abs_err = phase_kernel(deflate, dev, args.seed)
+    abs_err.update(phase_variants(dv, kv, dev, args.seed))
 
     for k in deflate.launches:  # the main path's run starts here
         deflate.launches[k] = 0
@@ -392,15 +559,23 @@ def main() -> int:
     check(all(v > 0 for v in launches.values()), "a kernel of the path never launched")
 
     times = phase_timing(deflate, dev, args.seed)
+
+    for k in dv.launches:  # the sweep path's run starts here
+        dv.launches[k] = 0
+    tables = phase_sweep(kv, args.seed)
+    sweep_launches = dict(dv.launches)  # ... and ends here
+    print(f"sweep path launches: {sweep_launches}")
+    check(all(v > 0 for v in sweep_launches.values()), "a kernel of the sweep never launched")
+    launches.update(sweep_launches)
+    times.update(best_variant_times(dv, kv, tables, dev, args.seed))
+
     check("jax" not in sys.modules and "pls_tpu" not in sys.modules, "jax was imported")
-    replaces = {"deflate_f32": "pls_tpu/ops/deflate.py:83", "deflate_bf16": "pls_tpu/ops/deflate.py:102"}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": "pls_tpu_torch/csrc/deflate.cu",
-         "replaces": replaces[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": f"pls_tpu_torch/csrc/{source}",
+         "replaces": replaces, "launches": launches[name],
          "max_abs_err": abs_err[name], "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in ("deflate_f32", "deflate_bf16")
+        for name, source, replaces in KERNELS
     ]}))
-    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
