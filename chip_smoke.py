@@ -38,10 +38,25 @@ Phases, each of which fails the run:
      default 65536×2048 and at 100000×5000, in f32 and in bf16, printing
      its tables (every variant beside the shipped kernel, the plain form
      and the copy ceiling), each row's err_p and err_tt against f64
-     within its bound (SWEEP_RTOL); each of K3-K5 must launch.
+     within its bound (SWEEP_RTOL); each of K3-K5 must launch;
+  7. the statistics path at the north star's width: raw 50000×10000 X and
+     10 Y (rank-30 latent data, column offsets of 0.5-3 σ) made on the
+     card from --seed and written as .npy into a temporary directory
+     under build/ (removed at exit); `stats_from_npy` (XᵀX, XᵀY held to
+     f64 on the card, relative Frobenius ≤ 1e-4), `fit_streaming_npy`
+     (A=20, zscore; coefficients against the f64 statistics' fit),
+     `cv_kfold_npy` (k=10, A=20, zscore, residual pass; one-pass PRESS
+     against Σ errors² at tests/test_binio.py's tolerances),
+     `cv_loo_from_stats` over 1000 held-out rows (4 folds against explicit
+     f64 downdated fits, 5e-3 of Y's scale) and `optimal_num_components`
+     on the device-resident errors; prints the disk→card rate beside the
+     file's read rate and the pinned host→device copy rate, the k-fold
+     wall, LOO folds per second and the peak device memory.  This path
+     runs none of K1-K5.
 
 The K1/K2 launch counts are set to 0 just before phase 3 and read just
-after phase 4; the K3-K5 counts just before and after phase 6.  The last
+after phase 4; the K3-K5 counts just before and after phase 6; all of
+them just before and after phase 7, where they stay 0.  The last
 two lines of stdout are the kernels' JSON record (K1-K5; K3-K5's ms is
 the best variant's at 65536×2048) and {"ok": true, "device": {...}};
 the card's nvidia-smi line is printed in phase 1.  Without a CUDA device,
@@ -55,10 +70,13 @@ import argparse
 import contextlib
 import io
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -100,6 +118,14 @@ VARIANT_SHAPES = [(10, 15), (130, 96), (300, 401), (4096, 5000), SWEEP]
 # X rounded to bf16.
 SWEEP_RTOL = {"mxu_HIGH": 1e-4, "mxu_DEFAULT": 1e-2}
 SWEEP_BF16_RTOL = 2.0 ** -8
+
+# phase 7: the statistics path (BASELINE.json's 1M×10k north star, N cut to
+# 50000), k-fold CV and 1000 LOO folds at A = 20
+STATS = (50_000, 10_000, 10)
+STATS_K, STATS_A, LOO_FOLDS, LOO_CHECKED = 10, 20, 1000, 4
+STATS_CHUNK = 8192  # rows per chunk when writing the files
+STATS_RTOL = 1e-4  # XᵀX, XᵀY: relative Frobenius error against f64
+LOO_ATOL = 5e-3  # held-out errors, relative to Y's scale (σ = 1 after z-scoring)
 
 # (kernel name, its source in pls_tpu_torch/csrc, the TPU kernel it replaces)
 KERNELS = [
@@ -528,6 +554,197 @@ def best_variant_times(dv, kv, tables: dict, dev, seed: int) -> dict:
     return out
 
 
+def make_stats_data(dev, seed: int):
+    """Raw 50000×10000 X and 10 Y on the card: make_big's rank-30 latent
+    model plus noise, with column offsets of 0.5-3 column σ."""
+    N, K, M = STATS
+    g = torch.Generator(dev).manual_seed(seed + 7)
+    lat = torch.randn((N, 30), generator=g, device=dev)
+    X = lat @ torch.randn((30, K), generator=g, device=dev)
+    X += 0.5 * torch.randn((N, K), generator=g, device=dev)
+    Y = lat @ torch.randn((30, M), generator=g, device=dev)
+    Y += 0.1 * torch.randn((N, M), generator=g, device=dev)
+    for T in (X, Y):
+        T += (0.5 + 2.5 * torch.rand(T.shape[1], generator=g, device=dev)) * T.std(0)
+    return X, Y
+
+
+def f64_stats(X, Y, chunk: int = 4096):
+    """XᵀX, XᵀY, YᵀY and the column sums in float64 on the card, in chunks."""
+    K, M = X.shape[1], Y.shape[1]
+    XX = torch.zeros((K, K), dtype=torch.float64, device=X.device)
+    XY = torch.zeros((K, M), dtype=torch.float64, device=X.device)
+    YY = torch.zeros((M, M), dtype=torch.float64, device=X.device)
+    sx = torch.zeros(K, dtype=torch.float64, device=X.device)
+    sy = torch.zeros(M, dtype=torch.float64, device=X.device)
+    for i in range(0, X.shape[0], chunk):
+        x, y = X[i : i + chunk].double(), Y[i : i + chunk].double()
+        XX.addmm_(x.T, x)
+        XY.addmm_(x.T, y)
+        YY.addmm_(y.T, y)
+        sx += x.sum(0)
+        sy += y.sum(0)
+    return XX, XY, YY, sx, sy
+
+
+def fro_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.norm(a.double() - b) / torch.linalg.norm(b))
+
+
+def synced_wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fsync(path: str) -> None:
+    """Flush a written file to the disk, so that a later read does not
+    wait on its write-back."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def direct_io_ok(path: str) -> bool:
+    try:
+        os.close(os.open(path, os.O_RDONLY | os.O_DIRECT))
+        return True
+    except OSError:
+        return False
+
+
+def phase_stats(dev, seed: int) -> dict:
+    """The statistics path on the card (phase 7).  Returns its measurements."""
+    from pls_tpu_torch.cv.kfold import kfold_assignments
+    from pls_tpu_torch.cv.loo import cv_loo_from_stats
+    from pls_tpu_torch.cv.validation import optimal_num_components
+    from pls_tpu_torch.models.kernel_pls import fit_from_stats
+    from pls_tpu_torch.models.predict import coefficients, residuals_all_components
+    from pls_tpu_torch.models.streaming import zscore_stats
+    from pls_tpu_torch.utils import binio
+
+    N, K, M = STATS
+    A = STATS_A
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    X, Y = make_stats_data(dev, seed)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_stats_", dir=ROOT / "build"))
+    try:
+        xp, yp = str(tmp / "X.npy"), str(tmp / "Y.npy")
+        _, wall_w = synced_wall(lambda: (
+            binio.write_npy_chunked(xp, (X[i : i + STATS_CHUNK] for i in range(0, N, STATS_CHUNK))),
+            binio.write_npy_chunked(yp, [Y]), fsync(xp), fsync(yp)))
+        xbytes = os.path.getsize(xp)
+        direct = direct_io_ok(xp)
+        chunk_rows = binio.auto_chunk_rows(torch.float32)
+        # the file's read rate (pooled pinned reader, no copies) and the
+        # pinned host→device copy rate of one chunk
+        t0 = time.perf_counter()
+        for _ in binio.stream_npy(xp, chunk_rows, reuse_buffers=True, pin_memory=True):
+            pass
+        read_gbs = xbytes / (time.perf_counter() - t0) / 1e9
+        host = torch.empty((chunk_rows, K), pin_memory=True)
+        devbuf = torch.empty((chunk_rows, K), device=dev)
+        h2d_ms = median_ms(lambda: devbuf.copy_(host, non_blocking=True), reps=9, warmup=2)
+        h2d_gbs = host.numel() * 4 / h2d_ms / 1e6
+        del host, devbuf
+        print(f"stats data {N}x{K}x{M} f32: X file {xbytes} B written and synced in {wall_w:.3f} s "
+              f"(O_DIRECT {'yes' if direct else 'no, buffered'}); read rate "
+              f"{read_gbs:.3f} GB/s; pinned host->device {h2d_gbs:.3f} GB/s "
+              f"({h2d_ms:.4f} ms per {chunk_rows}-row chunk)")
+
+        # the stats pass, held to f64 on the card
+        acc, wall_s = synced_wall(lambda: binio.stats_from_npy(
+            xp, yp, device=dev, stats_precision="highest"))
+        XX64, XY64, YY64, sx64, sy64 = f64_stats(X, Y)
+        e_xx, e_xy = fro_rel(acc.XX, XX64), fro_rel(acc.XY, XY64)
+        stats_gbs = (xbytes + os.path.getsize(yp)) / wall_s / 1e9
+        print(f"stats_from_npy: {wall_s:.3f} s = {stats_gbs:.3f} GB/s disk->card; XX rel Frobenius "
+              f"{e_xx:.3e}, XY {e_xy:.3e} vs f64 on the card (bound {STATS_RTOL})")
+        check(acc.n == N and e_xx <= STATS_RTOL and e_xy <= STATS_RTOL,
+              f"stats pass: n {acc.n}, XX {e_xx:.2e}, XY {e_xy:.2e} > {STATS_RTOL}")
+        devices = {acc.XX.device.type, acc.XY.device.type}
+        del acc
+
+        # the streamed fit (A = 20, z-scored in closed form) against the fit
+        # from the f64 statistics
+        Z64 = zscore_stats(XX64, XY64, sx64, sy64, N, YY=YY64)
+        del XX64, XY64
+        fit, wall_f = synced_wall(lambda: binio.fit_streaming_npy(
+            xp, yp, A, device=dev, zscore=True))
+        B32 = coefficients(fit)
+        B64 = coefficients(fit_from_stats(Z64[0], Z64[1], A))
+        e_b = rel_err(B32, B64)
+        print(f"fit_streaming_npy A={A} zscore: wall {wall_f:.3f} s; coef rel {e_b:.3e} vs the f64 "
+              f"statistics' fit (bound {FIT_COEF_RTOL})")
+        check(tuple(B32.shape) == (K, M) and bool(torch.isfinite(B32).all()),
+              "streamed fit: shape / non-finite")
+        check(e_b <= FIT_COEF_RTOL, f"streamed fit: coef rel {e_b:.2e} > {FIT_COEF_RTOL}")
+        devices.add(B32.device.type)
+        del fit, B32, B64
+
+        # k-fold CV from the files: two passes, errors kept on the card
+        assign = kfold_assignments(N, STATS_K, seed)
+        (summary, res), wall_k = synced_wall(lambda: binio.cv_kfold_npy(
+            xp, yp, A, k=STATS_K, assignments=assign, zscore=True, residual_pass=True,
+            device=dev))
+        check(tuple(res.errors.shape) == (M, N, A) and bool(torch.isfinite(res.errors).all()),
+              "k-fold: errors shape / non-finite")
+        press_res = (res.errors.double() ** 2).sum(1).cpu().numpy()
+        energy = float(N - 1)  # Σ y² of a z-scored column
+        gap = np.abs(summary.press - press_res)
+        worst = float((gap / (2e-4 * np.abs(press_res) + 1e-5 * energy)).max())
+        opt, wall_o = synced_wall(lambda: optimal_num_components(res))
+        print(f"cv_kfold_npy k={STATS_K} A={A} zscore: wall {wall_k:.3f} s (stats pass, closed "
+              f"form, residual pass); PRESS one-pass vs Σ errors² max gap {float(gap.max()):.4e} "
+              f"({worst:.3f} of the bound); RMSE at A=1/{A} "
+              f"{summary.rmse[:, 0].round(4).tolist()} / {summary.rmse[:, -1].round(4).tolist()}; "
+              f"optimal components {opt.tolist()} ({wall_o:.3f} s on the device errors)")
+        check(worst <= 1.0, "k-fold: one-pass PRESS disagrees with the residual pass")
+        check(bool(((opt >= 1) & (opt <= A)).all()), "k-fold: optimal components out of range")
+        devices |= {summary.B.device.type, res.errors.device.type, opt.device.type}
+        del summary, res
+
+        # LOO over 1000 held-out rows from the (z-scored) statistics
+        acc = binio.stats_from_npy(xp, yp, device=dev, stats_precision="highest")
+        XXz, XYz, _, mx, sdx, my, sdy = acc.zscored()
+        del acc
+        rows = torch.arange(LOO_FOLDS, device=dev)
+        fx, fy = (X[rows] - mx) / sdx, (Y[rows] - my) / sdy
+        loo, wall_l = synced_wall(lambda: cv_loo_from_stats(XXz, XYz, fx, fy, A))
+        del XXz, XYz
+        check(tuple(loo.errors.shape) == (M, LOO_FOLDS, A) and bool(torch.isfinite(loo.errors).all()),
+              "LOO: errors shape / non-finite")
+        mx64, sdx64, my64, sdy64 = Z64[3:]
+        worst_loo = 0.0
+        for i in range(LOO_CHECKED):
+            x = (X[i].double() - mx64) / sdx64
+            y = (Y[i].double() - my64) / sdy64
+            f64 = fit_from_stats(Z64[0] - torch.outer(x, x), Z64[1] - torch.outer(x, y), A)
+            ref = residuals_all_components(f64, x[None], y[None])[0]  # (A, M)
+            worst_loo = max(worst_loo, float((loo.errors[:, i, :].T.double() - ref).abs().max()))
+        print(f"cv_loo_from_stats {LOO_FOLDS} folds A={A}: wall {wall_l:.3f} s = "
+              f"{LOO_FOLDS / wall_l:.1f} folds/s; {LOO_CHECKED} folds vs explicit f64 downdated "
+              f"fits: max |err| {worst_loo:.3e} (bound {LOO_ATOL})")
+        check(worst_loo <= LOO_ATOL, f"LOO: {worst_loo:.2e} > {LOO_ATOL} against f64")
+        devices.add(loo.errors.device.type)
+        check(devices == {"cuda"}, f"phase 7 tensors on {devices}")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"phase 7 peak device memory {peak} B ({peak / 2**30:.2f} GiB); {nvidia_smi()}")
+        return {"write_s": wall_w, "read_gbs": read_gbs, "h2d_gbs": h2d_gbs, "stats_s": wall_s,
+                "stats_gbs": stats_gbs, "kfold_s": wall_k, "loo_per_s": LOO_FOLDS / wall_l,
+                "peak_bytes": peak}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del X, Y
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -568,6 +785,14 @@ def main() -> int:
     check(all(v > 0 for v in sweep_launches.values()), "a kernel of the sweep never launched")
     launches.update(sweep_launches)
     times.update(best_variant_times(dv, kv, tables, dev, args.seed))
+
+    for counts in (deflate.launches, dv.launches):  # the stats path's run starts here
+        for k in counts:
+            counts[k] = 0
+    stats = phase_stats(dev, args.seed)
+    stats_launches = {**deflate.launches, **dv.launches}  # ... and ends here
+    print(f"stats path launches: {stats_launches} (the path runs none of K1-K5); "
+          f"{json.dumps(stats)}")
 
     check("jax" not in sys.modules and "pls_tpu" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": [

@@ -8,7 +8,11 @@ Ported so far is the reference CLI's main path: CSV IO, z-scoring, the
 kernel-PLS fit (types 1 and 2) with the per-component deflation pass as a
 hand-written CUDA kernel (ops/deflate.py, csrc/deflate.cu), prediction,
 LOO / LSO / new-data cross-validation, the Wilcoxon component selector,
-the PLSModel façade and the CLI (`python -m pls_tpu_torch X.csv Y.csv A`).
+the PLSModel façade and the CLI (`python -m pls_tpu_torch X.csv Y.csv A`);
+and the statistics path: streaming XᵀX/XᵀY (models/streaming.py), fits
+from the statistics, downdated LOO/LSO/k-fold and the one-pass k-fold CV
+(cv/), `.npy` ingest (utils/binio.py), and the JAX package's keyed random
+partitions without jax (utils/jax_prng.py).
 """
 
 from pls_tpu_torch.types import (
@@ -25,7 +29,22 @@ from pls_tpu_torch.types import (
 from pls_tpu_torch.ops.stats import colwise_stdev, colwise_z_scores, sst, z_scores
 from pls_tpu_torch.ops.special import normalcdf
 from pls_tpu_torch.ops.wilcoxon import wilcoxon
-from pls_tpu_torch.models.kernel_pls import fit, fit_folds
+from pls_tpu_torch.models.kernel_pls import (
+    fit,
+    fit_folds,
+    fit_from_stats,
+    fit_from_stats_blockdowndated,
+    fit_from_stats_downdated,
+)
+from pls_tpu_torch.models.streaming import (
+    FoldStatsAccumulator,
+    StatsAccumulator,
+    collect_moments,
+    fit_streaming,
+    fit_streaming_csv,
+    zscore_fold_stats,
+    zscore_stats,
+)
 from pls_tpu_torch.models.predict import (
     coefficients,
     coefficients_all_components,
@@ -38,10 +57,27 @@ from pls_tpu_torch.models.predict import (
     scores,
     sse,
 )
-from pls_tpu_torch.cv.loo import cv_loo
-from pls_tpu_torch.cv.lso import cv_lso, lso_sizes, random_partitions
+from pls_tpu_torch.cv.kfold import (
+    KFoldOnePass,
+    cv_group,
+    cv_kfold,
+    cv_kfold_downdate,
+    cv_kfold_from_stats,
+    cv_kfold_onepass,
+    fold_residual_chunk,
+    kfold_assignments,
+)
+from pls_tpu_torch.cv.loo import cv_loo, cv_loo_downdate, cv_loo_from_stats
+from pls_tpu_torch.cv.lso import cv_lso, cv_lso_downdate, lso_sizes, random_partitions
 from pls_tpu_torch.cv.newdata import cv_new_data
-from pls_tpu_torch.cv.validation import optimal_num_components, print_validation, validation
+from pls_tpu_torch.cv.validation import (
+    compare_models,
+    optimal_num_components,
+    print_validation,
+    q_squared,
+    rmsep,
+    validation,
+)
 from pls_tpu_torch.model import PLSModel
 from pls_tpu_torch.utils.gcc_rng import GccRng
 
@@ -49,11 +85,18 @@ __all__ = [
     "KERNEL_TYPE1", "KERNEL_TYPE2", "METHOD", "MSE", "RESS", "VALIDATION_OUTPUT",
     "PLSFit", "Residual", "default_float_dtype",
     "colwise_stdev", "colwise_z_scores", "sst", "z_scores", "normalcdf", "wilcoxon",
-    "fit", "fit_folds",
+    "fit", "fit_folds", "fit_from_stats", "fit_from_stats_blockdowndated",
+    "fit_from_stats_downdated",
+    "FoldStatsAccumulator", "StatsAccumulator", "collect_moments", "fit_streaming",
+    "fit_streaming_csv", "zscore_fold_stats", "zscore_stats",
     "coefficients", "coefficients_all_components", "explained_variance",
     "fitted_values", "loadings_x", "loadings_y", "residuals",
     "residuals_all_components", "scores", "sse",
-    "cv_loo", "cv_lso", "lso_sizes", "random_partitions", "cv_new_data",
-    "optimal_num_components", "print_validation", "validation",
+    "KFoldOnePass", "cv_group", "cv_kfold", "cv_kfold_downdate", "cv_kfold_from_stats",
+    "cv_kfold_onepass", "fold_residual_chunk", "kfold_assignments",
+    "cv_loo", "cv_loo_downdate", "cv_loo_from_stats",
+    "cv_lso", "cv_lso_downdate", "lso_sizes", "random_partitions", "cv_new_data",
+    "compare_models", "optimal_num_components", "print_validation", "q_squared", "rmsep",
+    "validation",
     "PLSModel", "GccRng",
 ]

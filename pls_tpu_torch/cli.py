@@ -10,7 +10,8 @@ Counterpart of `pls_tpu/cli.py` (reference main.cpp:10-44):
 - z-score X and Y, fit kernel PLS type 1, print the model state, the
   explained variance for 1..A components, LOO validation (RMSE), then LSO
   validation (fraction 0.3, 10·N trials, the reference's default-seeded
-  mt19937 partitions);
+  mt19937 partitions); `--cv kfold|all` adds k-fold validation on the JAX
+  package's keyed fold labels, `--rng jax` its keyed LSO partitions;
 - all output on stderr; stdout stays empty.
 
 The run is on CUDA device 0 when PyTorch sees a card, else on the CPU.
@@ -27,11 +28,8 @@ USAGE = (
     "with no headers."
 )
 
-# CLI values of the JAX package that wait for a later part of the port
-_NOT_PORTED = {
-    "kfold": "--cv kfold/all is not ported yet (ROADMAP queue 1 item 8)",
-    "preprocess": "--preprocess is not ported yet (ROADMAP queue 1 item 11)",
-}
+# a CLI option of the JAX package that waits for a later part of the port
+_NOT_PORTED_PREPROCESS = "--preprocess is not ported yet (ROADMAP queue 1 item 11)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,13 +50,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--cv", choices=["both", "loo", "lso", "kfold", "all", "none"], default="both",
         help="which cross-validations to run (default: both = loo+lso, like "
-        "the reference CLI)",
+        "the reference CLI; all = loo+lso+kfold)",
     )
+    p.add_argument("--kfold-k", type=int, default=10, help="folds for --cv kfold/all (default 10)")
     p.add_argument("--lso-frac", type=float, default=0.3)
     p.add_argument("--lso-trials", type=int, default=None, help="default: 10 * n_rows")
     p.add_argument(
-        "--rng", choices=["gcc", "torch"], default="gcc",
-        help="gcc = the reference's exact std::mt19937 partitions (default)",
+        "--rng", choices=["gcc", "jax", "torch"], default="gcc",
+        help="gcc = the reference's exact std::mt19937 partitions (default); "
+        "jax = the JAX package's jax.random partitions; torch = a torch.Generator",
     )
     p.add_argument("--seed", type=int, default=None)
     p.add_argument(
@@ -89,11 +89,8 @@ def main(argv: list[str] | None = None) -> int:
             return 0
         print(USAGE, file=sys.stderr)
         return 100
-    if args.cv in ("kfold", "all"):
-        print(f"Error: {_NOT_PORTED['kfold']}", file=sys.stderr)
-        return 1
     if args.preprocess:
-        print(f"Error: {_NOT_PORTED['preprocess']}", file=sys.stderr)
+        print(f"Error: {_NOT_PORTED_PREPROCESS}", file=sys.stderr)
         return 1
 
     from pls_tpu_torch.config import PLSRunConfig, run_pipeline
@@ -106,9 +103,13 @@ def main(argv: list[str] | None = None) -> int:
         num_components=args.num_components,
         method=METHOD(args.method),
         dtype=args.dtype,
-        cv={"both": ("loo", "lso"), "loo": ("loo",), "lso": ("lso",), "none": ()}[args.cv],
+        cv={
+            "both": ("loo", "lso"), "loo": ("loo",), "lso": ("lso",),
+            "kfold": ("kfold",), "all": ("loo", "lso", "kfold"), "none": (),
+        }[args.cv],
         lso_fraction=args.lso_frac,
         lso_trials=args.lso_trials,
+        kfold_k=args.kfold_k,
         rng=args.rng,
         seed=args.seed,
         alpha=args.alpha,

@@ -22,11 +22,14 @@ class PLSRunConfig:
     num_components: int
     method: METHOD = KERNEL_TYPE1
     dtype: str | None = None  # None = float64 on the CPU, float32 on CUDA
-    cv: tuple[str, ...] = ("loo", "lso")  # subset of {"loo", "lso"}
+    cv: tuple[str, ...] = ("loo", "lso")  # subset of {"loo", "lso", "kfold"}
     lso_fraction: float = 0.3
     lso_trials: int | None = None  # None = 10 * n_rows (reference main.cpp:40)
-    rng: str = "gcc"  # "gcc" = the reference's exact partitions | "torch"
-    seed: int | None = None  # None = 5489 (gcc) / 0 (torch)
+    kfold_k: int = 10  # folds for "kfold"
+    # "gcc" = the reference's exact partitions | "jax" = the JAX package's
+    # jax.random partitions | "torch" = a torch.Generator
+    rng: str = "gcc"
+    seed: int | None = None  # None = 5489 (gcc) / 0 (jax, torch); also keys k-fold
     alpha: float = 0.1  # Wilcoxon selector level (pls.h:152)
     json_out: str | None = None
     complex_format: bool = False  # Eigen '(re,0)' tuples for byte diffing
@@ -40,8 +43,9 @@ def default_device() -> torch.device:
 
 def run_pipeline(cfg: PLSRunConfig, *, file=None, device: torch.device | None = None) -> dict:
     """Run the reference CLI pipeline (reference main.cpp:21-41) under
-    `cfg`: read → z-score both → fit → print state + EV → LOO → LSO.
-    Returns the report dict; raises utils.io errors on bad input."""
+    `cfg`: read → z-score both → fit → print state + EV → LOO → LSO →
+    k-fold (`pls_tpu/config.py:40-129`).  Returns the report dict; raises
+    utils.io errors on bad input."""
     from pls_tpu_torch.cv.validation import optimal_num_components, print_validation, validation
     from pls_tpu_torch.model import PLSModel
     from pls_tpu_torch.ops.stats import colwise_z_scores
@@ -90,11 +94,16 @@ def run_pipeline(cfg: PLSRunConfig, *, file=None, device: torch.device | None = 
     if "lso" in cfg.cv:
         n = X.shape[0]
         trials = cfg.lso_trials if cfg.lso_trials is not None else 10 * n
-        if cfg.rng == "gcc":
-            rng = GccRng(cfg.seed if cfg.seed is not None else 5489)
-        else:
-            rng = torch.Generator(device).manual_seed(cfg.seed if cfg.seed is not None else 0)
+        seed = cfg.seed if cfg.seed is not None else (5489 if cfg.rng == "gcc" else 0)
+        rng = {
+            "gcc": lambda: GccRng(seed),
+            "jax": lambda: seed,  # an int is a JAX seed to cv_LSO
+            "torch": lambda: torch.Generator(device).manual_seed(seed),
+        }[cfg.rng]()
         record("lso", model.cv_LSO(cfg.lso_fraction, trials, rng))
+    if "kfold" in cfg.cv:
+        report["kfold_k"] = cfg.kfold_k
+        record("kfold", model.cv_KFOLD(cfg.kfold_k, key=cfg.seed if cfg.seed is not None else 0))
 
     if cfg.json_out:
         with open(cfg.json_out, "w") as f:

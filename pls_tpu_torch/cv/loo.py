@@ -6,13 +6,20 @@ arithmetically the fit on the N−1 surviving rows, so the folds run as a
 leading batch axis of `kernel_pls.fit_folds`, in chunks of `batch_size`.
 Each fold records the held-out row's residual under every truncation
 1..A, in the reference's (M, N, A) layout.
+
+`cv_loo_downdate` and `cv_loo_from_stats` (counterparts of
+`pls_tpu/cv/loo.py:92-197`, kernel type 2) refit fold i from XᵀX/XᵀY with
+the rank-1 downdate XX r − xᵢ(xᵢᵀr) inside the matvec: O(K²) per fold and
+component, and the folds of a batch share one product with XX.
+`cv_loo_from_stats` needs only the statistics and the held-out rows, so
+it serves data streamed from disk (models/streaming.py, utils/binio.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-from pls_tpu_torch.models.kernel_pls import fit_folds
+from pls_tpu_torch.models.kernel_pls import _prec_ctx, fit_folds, fit_from_stats_downdated
 from pls_tpu_torch.models.predict import residuals_all_components
 from pls_tpu_torch.types import METHOD, Residual
 from pls_tpu_torch.utils.batching import chunked_map, default_batch_size
@@ -46,4 +53,77 @@ def cv_loo(
         return residuals_all_components(f, X[idx][:, None, :], Y[idx][:, None, :])[:, 0]
 
     errs = chunked_map(folds, rows, batch_size)  # (N, A, M)
+    return Residual(errors=errs.permute(2, 0, 1), method="LOO")
+
+
+def global_stats(X: torch.Tensor, Y: torch.Tensor, x_storage: str | None, precision="highest"):
+    """(XX, XY, Xs, acc): XᵀX and XᵀY in the accumulation dtype `acc`, and
+    X as stored (`Xs`, bfloat16 for x_storage="bf16", whose products then
+    run in float32 on Y rounded to bfloat16, as the JAX package's
+    `preferred_element_type` products)."""
+    acc = X.dtype if X.element_size() >= 4 else torch.float32
+    Xs = X
+    if x_storage is not None:
+        if x_storage not in ("bf16", "bfloat16"):
+            raise ValueError(f"unknown x_storage {x_storage!r} (use 'bf16')")
+        Xs = X.to(torch.bfloat16)
+    with _prec_ctx(precision):
+        if Xs.element_size() < 4:
+            Xw = Xs.to(acc)
+            return Xw.mT @ Xw, Xw.mT @ Y.to(torch.bfloat16).to(acc), Xs, acc
+        return X.mT @ X, X.mT @ Y, Xs, acc
+
+
+def cv_loo_downdate(
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    A: int,
+    *,
+    fold_indices=None,
+    batch_size: int | None = None,
+    power_iters: int | None = None,
+    precision: str | None = "highest",
+    x_storage: str | None = None,
+) -> Residual:
+    """LOO CV by rank-1 downdates of XᵀX/XᵀY (kernel type 2).  x_storage=
+    "bf16" rounds X to bfloat16 for the one pass over X (the statistics);
+    the rows downdated stay in the accumulation dtype.  `fold_indices`
+    picks the held-out rows (default every row).  Returns (M, F, A)."""
+    if Y.ndim == 1:
+        Y = Y[:, None]
+    XX, XY, _, acc = global_stats(X, Y, x_storage, precision)
+    idx = torch.arange(X.shape[0]) if fold_indices is None else torch.as_tensor(fold_indices)
+    idx = idx.to(X.device)
+    return cv_loo_from_stats(
+        XX, XY, X.to(acc)[idx], Y.to(acc)[idx], A, batch_size=batch_size,
+        power_iters=power_iters, precision=precision,
+    )
+
+
+def cv_loo_from_stats(
+    XX: torch.Tensor,
+    XY: torch.Tensor,
+    fold_X: torch.Tensor,
+    fold_Y: torch.Tensor,
+    A: int,
+    *,
+    batch_size: int | None = None,
+    power_iters: int | None = None,
+    precision: str | None = "highest",
+) -> Residual:
+    """Batched LOO from the global statistics and the F held-out rows
+    fold_X (F, K), fold_Y (F, M), each contained in XX/XY.  Returns
+    Residual errors (M, F, A)."""
+    if fold_Y.ndim == 1:
+        fold_Y = fold_Y[:, None]
+    F = fold_X.shape[0]
+    if batch_size is None:
+        batch_size = min(F, 128)
+
+    def folds(i: torch.Tensor) -> torch.Tensor:
+        x, y = fold_X[i], fold_Y[i]
+        f = fit_from_stats_downdated(XX, XY, x, y, A, power_iters=power_iters, precision=precision)
+        return residuals_all_components(f, x[:, None, :], y[:, None, :])[:, 0]  # (F, A, M)
+
+    errs = chunked_map(folds, torch.arange(F, device=fold_X.device), batch_size)
     return Residual(errors=errs.permute(2, 0, 1), method="LOO")

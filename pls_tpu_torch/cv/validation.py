@@ -4,6 +4,7 @@ Counterpart of `pls_tpu/cv/validation.py` (reference pls.cpp:229-305):
   validation(residual, out_type)    → (M, A) RESS (= PRESS) or MSE
   optimal_num_components(residual)  → per-Y optimal component count, 1-based
   print_validation(...)             → the "LOO Validation:" stderr tables
+  compare_models, q_squared, rmsep  → `pls_tpu/cv/validation.py:74-118`
 
 Selection rule (pls.cpp:263-289): per Y variable, take the component count
 with the least PRESS (first minimum), then the fewest components whose
@@ -17,6 +18,7 @@ import sys
 
 import torch
 
+from pls_tpu_torch.ops.stats import sst
 from pls_tpu_torch.ops.wilcoxon import wilcoxon
 from pls_tpu_torch.types import MSE, RESS, VALIDATION_OUTPUT, Residual
 from pls_tpu_torch.utils.reporting import format_eigen
@@ -49,6 +51,32 @@ def _optimal_from_errors(errs: torch.Tensor, alpha: float) -> torch.Tensor:
 def optimal_num_components(residual: Residual, alpha: float = 0.1) -> torch.Tensor:
     """Per-Y optimal number of components, 1-based (pls.cpp:263-289)."""
     return _optimal_from_errors(residual.errors, alpha)
+
+
+def compare_models(
+    residual_1: Residual, residual_2: Residual, comp_1: int, comp_2: int
+) -> torch.Tensor:
+    """(M,) one-sided Wilcoxon p-values that model 1 at comp_1 components
+    is not better than model 2 at comp_2, on matched CV errors (the
+    selector's test, pls.cpp:283, between two models)."""
+    if residual_1.n_obs != residual_2.n_obs or residual_1.M != residual_2.M:
+        raise ValueError("residual sets must cover the same observations")
+    return wilcoxon(residual_1.errors[:, :, comp_1 - 1], residual_2.errors[:, :, comp_2 - 1])
+
+
+def q_squared(residual: Residual, Y) -> torch.Tensor:
+    """(M, A) Q² = 1 − PRESS/SST, with PRESS scaled to one pass over the
+    rows of `Y` (LSO counts each row test_size·trials/N times)."""
+    Y = torch.as_tensor(Y, device=residual.errors.device)
+    if Y.ndim == 1:
+        Y = Y[:, None]
+    scale = residual.n_obs / Y.shape[0]
+    return 1.0 - validation(residual, RESS) / (sst(Y)[:, None] * scale)
+
+
+def rmsep(residual: Residual) -> torch.Tensor:
+    """(M, A) root-mean-squared error of prediction, sqrt(MSE)."""
+    return validation(residual, MSE).sqrt()
 
 
 def print_validation(

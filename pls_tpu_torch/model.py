@@ -9,7 +9,10 @@ API (reference → here):
   loadingsX/loadingsY                    → implemented (the reference only declares them)
   cv_LOO / cv_NEW_DATA / cv_LSO          → same names; cv_LSO takes a GccRng
                                            (the reference's exact partitions),
-                                           a torch.Generator or an int seed
+                                           an int JAX seed or JAX key (the JAX
+                                           package's partitions), or a
+                                           torch.Generator
+  cv_LOO(downdate=True), cv_KFOLD        → `pls_tpu/model.py:202-255`
   print_state / print_explained_variance → the same stderr tables
   save / load                            → the JAX package's .npz format
 """
@@ -23,7 +26,8 @@ import numpy as np
 import torch
 
 from pls_tpu_torch.convert import fit_from_numpy, fit_to_numpy
-from pls_tpu_torch.cv.loo import cv_loo
+from pls_tpu_torch.cv.kfold import cv_kfold, cv_kfold_downdate
+from pls_tpu_torch.cv.loo import cv_loo, cv_loo_downdate
 from pls_tpu_torch.cv.lso import cv_lso
 from pls_tpu_torch.cv.newdata import cv_new_data
 from pls_tpu_torch.models import predict as _predict
@@ -181,13 +185,43 @@ class PLSModel:
         return _predict.explained_variance(self._fit, *self._xy(X_new, Y_new), comp)
 
     # ---------- cross-validation ----------
-    def cv_LOO(self, *, batch_size: int | None = None) -> Residual:
+    def cv_LOO(self, *, batch_size: int | None = None, downdate: bool = False) -> Residual:
+        """LOO CV: masked refits with the model's method, or (downdate=True,
+        kernel methods only) rank-1 downdates of XᵀX/XᵀY, which fit kernel
+        type 2 from the statistics."""
         self._require_data()
-        return cv_loo(
-            self._X, self._Y, self.A, self._method, batch_size=batch_size,
-            power_iters=self._power_iters, precision=self._precision,
-            x_storage=self._x_storage,
-        )
+        common = dict(batch_size=batch_size, power_iters=self._power_iters,
+                      precision=self._precision, x_storage=self._x_storage)
+        if downdate:
+            if self._method not in (METHOD.KERNEL_TYPE1, METHOD.KERNEL_TYPE2):
+                raise ValueError(
+                    "downdate LOO computes the kernel-PLS model from "
+                    "X'X/X'Y statistics; it would silently cross-validate "
+                    f"a different model than {self._method} — use "
+                    "cv_LOO(downdate=False)"
+                )
+            return cv_loo_downdate(self._X, self._Y, self.A, **common)
+        return cv_loo(self._X, self._Y, self.A, self._method, **common)
+
+    def cv_KFOLD(
+        self,
+        k: int = 10,
+        *,
+        key=0,
+        assignments=None,
+        downdate: bool = True,
+        batch_size: int | None = None,
+    ) -> Residual:
+        """K-fold CV over the JAX-keyed partition of `key` (or the given
+        `assignments`).  downdate=True (kernel methods) refits each fold from
+        block-downdated XᵀX/XᵀY; False runs masked refits with the model's
+        own method."""
+        self._require_data()
+        common = dict(k=k, key=key, assignments=assignments, batch_size=batch_size,
+                      power_iters=self._power_iters, precision=self._precision)
+        if downdate and self._method in (METHOD.KERNEL_TYPE1, METHOD.KERNEL_TYPE2):
+            return cv_kfold_downdate(self._X, self._Y, self.A, **common)
+        return cv_kfold(self._X, self._Y, self.A, method=self._method, **common)
 
     def cv_NEW_DATA(self, X_new, Y_new) -> Residual:
         return cv_new_data(self._fit, self._on_device(X_new), self._on_device(Y_new))
@@ -200,21 +234,23 @@ class PLSModel:
         *,
         batch_size: int | None = None,
     ) -> Residual:
-        """Monte-Carlo CV.  `rng` may be a GccRng (the reference's exact
-        partitions; its state carries across calls like the reference's
-        `std::mt19937&`), a torch.Generator, or an int seed (default 0)."""
+        """Monte-Carlo CV (`pls_tpu/model.py:257-283`).  `rng` may be a
+        GccRng (the reference's exact partitions; its state carries across
+        calls like the reference's `std::mt19937&`), an int JAX seed or a
+        JAX key (uint32 (2,) data; the JAX package's partitions bit for
+        bit), None (JAX key 0), or a torch.Generator."""
         self._require_data()
         N = self._X.shape[0]
-        partitions = generator = None
+        partitions = generator = key = None
         if isinstance(rng, GccRng):
             partitions = rng.lso_partitions(N, num_trials)
         elif isinstance(rng, torch.Generator):
             generator = rng
         else:
-            generator = torch.Generator(self._X.device).manual_seed(0 if rng is None else int(rng))
+            key = 0 if rng is None else rng
         return cv_lso(
             self._X, self._Y, self.A, test_fraction, num_trials, self._method,
-            generator=generator, partitions=partitions, batch_size=batch_size,
+            generator=generator, key=key, partitions=partitions, batch_size=batch_size,
             power_iters=self._power_iters, precision=self._precision,
             x_storage=self._x_storage,
         )

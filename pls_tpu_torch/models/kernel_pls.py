@@ -8,7 +8,10 @@ The JAX `lax.scan` over components is a Python loop here.  The same loop
 serves one fit and a batch of CV folds: with a leading fold axis on X
 (F, N, K), XY, Pb and Rb carry it too and every product is batched.
 `fit` is the one-model entry point; `fit_folds` refits one model per row
-mask, which is how the cross-validators batch their folds.
+mask, which is how the cross-validators batch their folds.  The
+`fit_from_stats*` functions run type 2 from XᵀX/XᵀY alone (the
+statistics path: streaming fits, downdated LOO/LSO/k-fold), with the
+Gram matrix reached only through a matvec.
 
 Where the per-component (t, tt, p) pass runs:
   - one type-1 fit: `ops.deflate.deflate_pass`, which launches the CUDA
@@ -221,3 +224,122 @@ def _fit_kernel(
         T=T,
         method=METHOD.KERNEL_TYPE1 if type1 else METHOD.KERNEL_TYPE2,
     )
+
+
+# ---------- fits from the statistics XᵀX / XᵀY ----------
+def _kernel2_loop(matvec, XY: torch.Tensor, A: int, power_iters, precision) -> PLSFit:
+    """Kernel algorithm #2 with the Gram matrix given only through
+    `matvec(r) = XX·r`: counterpart of `_kernel2_scan`
+    (`pls_tpu/models/kernel_pls.py:385-437`).  XY is (K, M) or (F, K, M);
+    with a leading fold axis r is (F, K) and one matvec serves the F folds
+    (one (F, K)×(K, K) product against a shared XX)."""
+    batch = XY.shape[:-2]
+    K, M = XY.shape[-2:]
+    with _prec_ctx(precision):
+        Pb = XY.new_zeros((*batch, A, K))
+        Rb = torch.zeros_like(Pb)
+        Ws, Qs = [], []
+        for a in range(A):
+            if M == 1:
+                w = XY[..., 0]
+            else:
+                q0 = dominant_eigenvector(XY.mT @ XY, power_iters)
+                w = (XY @ q0[..., None])[..., 0]
+            w = w / torch.sqrt((w * w).sum(-1, keepdim=True))
+            r = w - (Rb.mT @ (Pb @ w[..., None]))[..., 0]
+            v = matvec(r)
+            tt = (r * v).sum(-1)
+            p = v / tt[..., None]
+            q = (XY.mT @ r[..., None])[..., 0] / tt[..., None]
+            Pb[..., a, :] = p
+            Rb[..., a, :] = r
+            Ws.append(w)
+            Qs.append(q)
+            XY = XY - p[..., :, None] * q[..., None, :] * tt[..., None, None]
+    return PLSFit(
+        W=torch.stack(Ws, -1), P=Pb.mT, Q=torch.stack(Qs, -1), R=Rb.mT,
+        T=XY.new_zeros((*batch, 0, A)), method=METHOD.KERNEL_TYPE2,
+    )
+
+
+def _gram_matvec(XX: torch.Tensor):
+    """r (..., K) → XX·r (..., K): for a batch of r, one product with XX."""
+    return lambda r: r @ XX.mT
+
+
+def fit_from_stats(
+    XX: torch.Tensor,
+    XY: torch.Tensor,
+    A: int,
+    *,
+    power_iters: int | None = None,
+    precision: str | None = "highest",
+) -> PLSFit:
+    """Kernel algorithm #2 fit from XX = XᵀX (K, K) and XY = XᵀY (K, M),
+    never touching X: counterpart of `pls_tpu/models/kernel_pls.py:445-472`.
+    XX and XY may carry a leading fold axis (F, K, K) / (F, K, M)."""
+    if XX.ndim == 2:
+        return _kernel2_loop(_gram_matvec(XX), XY, A, power_iters, precision)
+    return _kernel2_loop(
+        lambda r: (XX @ r[..., None])[..., 0], XY, A, power_iters, precision
+    )
+
+
+def fit_from_stats_downdated(
+    XX: torch.Tensor,
+    XY: torch.Tensor,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    A: int,
+    *,
+    power_iters: int | None = None,
+    precision: str | None = "highest",
+) -> PLSFit:
+    """`fit_from_stats(XX − xxᵀ, XY − xyᵀ, A)` with the rank-1 downdate
+    inside the matvec, XX r − x (xᵀr): counterpart of
+    `pls_tpu/models/kernel_pls.py:553-572`.  x (K,) / y (M,), or (F, K) /
+    (F, M) for F LOO folds at once against the one shared XX."""
+    if y.ndim == x.ndim - 1:
+        y = y[..., None]
+    XYi = XY - x[..., :, None] * y[..., None, :]
+    gram = _gram_matvec(XX)
+    return _kernel2_loop(
+        lambda r: gram(r) - x * (x * r).sum(-1, keepdim=True), XYi, A, power_iters, precision
+    )
+
+
+def fit_from_stats_blockdowndated(
+    XX: torch.Tensor,
+    XY: torch.Tensor,
+    Xf: torch.Tensor,
+    Yf: torch.Tensor,
+    A: int,
+    *,
+    power_iters: int | None = None,
+    precision: str | None = "highest",
+) -> PLSFit:
+    """`fit_from_stats(XX − XfᵀXf, XY − XfᵀYf, A)` with the block downdate
+    inside the matvec, XX r − Xfᵀ(Xf r): counterpart of
+    `pls_tpu/models/kernel_pls.py:489-550`.  Xf (Nf, K) / Yf (Nf, M), or
+    (F, Nf, K) / (F, Nf, M) for F folds at once; zero rows of Xf are exact
+    padding.  A bfloat16 Xf multiplies in float32 after r, Yf and Xf r are
+    rounded to bfloat16, as the JAX package's bf16 operands with float32
+    accumulation (a bf16 product is exact in float32)."""
+    acc = XX.dtype
+    if Yf.ndim == Xf.ndim - 1:
+        Yf = Yf[..., None]
+    gram = _gram_matvec(XX)
+    narrow = Xf.dtype == torch.bfloat16 and acc != torch.bfloat16
+
+    def rnd(v):
+        return v.to(torch.bfloat16).to(acc) if narrow else v
+
+    Xa = Xf.to(acc)
+    with _prec_ctx(precision):
+        XYf = XY - Xa.mT @ rnd(Yf.to(acc))
+
+    def matvec(r):
+        tr = (Xa @ rnd(r)[..., None])[..., 0]
+        return gram(r) - (Xa.mT @ rnd(tr)[..., None])[..., 0]
+
+    return _kernel2_loop(matvec, XYf, A, power_iters, precision)

@@ -30,6 +30,40 @@ class RaggedMatrixError(ValueError):
         )
 
 
+def _parse_row(line: str, separator: str, filename, row: int) -> np.ndarray:
+    fields = line.rstrip("\n").rstrip("\r").split(separator)
+    try:
+        return np.array([float(v) for v in fields], dtype=np.float64)
+    except ValueError as e:
+        raise ValueError(f"non-numeric field in {filename} row {row}: {e}") from e
+
+
+def stream_matrix_file(filename: str, chunk_rows: int, separator: str = ","):
+    """Yield float64 (rows ≤ chunk_rows, cols) blocks of a headerless CSV:
+    the numpy path of `pls_tpu/utils/io.py:62-131`.  A ragged row raises
+    RaggedMatrixError with its row index counted across chunks."""
+    if chunk_rows <= 0:
+        raise ValueError("chunk_rows must be positive")
+    rows: list[np.ndarray] = []
+    ncols: int | None = None
+    n = 0
+    with open(filename) as f:
+        for line in f:
+            row = _parse_row(line, separator, filename, n)
+            if ncols is not None and row.size != ncols:
+                raise RaggedMatrixError(n, row.size, ncols)
+            ncols = row.size
+            rows.append(row)
+            n += 1
+            if len(rows) == chunk_rows:
+                yield np.stack(rows)
+                rows = []
+    if rows:
+        yield np.stack(rows)
+    elif n == 0:
+        raise ValueError(f"{filename} is empty")
+
+
 def read_matrix_file(filename: str, separator: str = ",") -> np.ndarray:
     """Read a matrix file into a float64 (rows, cols) array.
 
@@ -43,21 +77,4 @@ def read_matrix_file(filename: str, separator: str = ",") -> np.ndarray:
         if arr.ndim != 2:
             raise ValueError(f"{filename}: expected 1-D or 2-D array")
         return np.asarray(arr, np.float64)
-    rows: list[np.ndarray] = []
-    ncols: int | None = None
-    with open(filename) as f:
-        for line in f:
-            fields = line.rstrip("\n").rstrip("\r").split(separator)
-            try:
-                row = np.array([float(v) for v in fields], dtype=np.float64)
-            except ValueError as e:
-                raise ValueError(
-                    f"non-numeric field in {filename} row {len(rows)}: {e}"
-                ) from e
-            if ncols is not None and row.size != ncols:
-                raise RaggedMatrixError(len(rows), row.size, ncols)
-            ncols = row.size
-            rows.append(row)
-    if not rows:
-        raise ValueError(f"{filename} is empty")
-    return np.stack(rows)
+    return np.concatenate(list(stream_matrix_file(filename, 1 << 16, separator)))

@@ -1,0 +1,114 @@
+"""JAX's counter-based PRNG in numpy, bit for bit, without jax.
+
+The JAX package draws its random fold labels (`pls_tpu/cv/kfold.py:35-45`),
+LSO partitions (`pls_tpu/cv/lso.py:44-49`) and repeated-k-fold keys
+(`pls_tpu/utils/binio.py:755-759`) from `jax.random`.  This module gives
+the same draws from the same int seeds, so that the port's partitions
+equal the JAX package's on a machine without jax.
+
+It matches jax 0.9.0 with `jax_threefry_partitionable=True` (that
+release's default), the threefry2x32 implementation:
+
+  - `key(seed)`: `jax.random.key(seed)` (`jax/_src/prng.py`
+    `threefry_seed`): the seed as an int64 split into its high and low
+    32-bit words.  Seeds are read as jax reads them with x64 enabled;
+    without x64 a negative seed or one of 2³¹ or more keys differently.
+  - `split(key, n)`: `_threefry_split_foldlike`, the hash of the pair
+    (0, i) for i < n.
+  - `fold_in(key, data)`: `threefry_fold_in`, the hash of (0, data).
+  - `random_bits32(key, n)`: `_threefry_random_bits_partitionable` at 32
+    bits, both hash words of (0, i) xor-ed.
+  - `permutation(key, n_or_array)`: `jax/_src/random.py::_shuffle`,
+    ceil(3·ln n / ln(2³²−1)) rounds (one up to n = 1625, two from
+    1626) of a stable sort on fresh 32-bit keys.
+
+A key is a (2,) uint32 array, the raw data of a jax key
+(`jax.random.key_data`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_U32 = np.uint32
+
+
+def _rotl(x: np.ndarray, d: int) -> np.ndarray:
+    return (x << _U32(d)) | (x >> _U32(32 - d))
+
+
+def threefry2x32(k: np.ndarray, x0: np.ndarray, x1: np.ndarray):
+    """The 20-round Threefry-2x32 hash of counter pairs (x0, x1) under key
+    k (..., 2), as `_threefry2x32_lowering` computes it; key and counters
+    broadcast."""
+    k = np.asarray(k, _U32)
+    k0, k1 = k[..., 0], k[..., 1]
+    ks = (k0, k1, k0 ^ k1 ^ _U32(0x1BD11BDA))
+    x0 = np.asarray(x0, _U32) + ks[0]
+    x1 = np.asarray(x1, _U32) + ks[1]
+    with np.errstate(over="ignore"):
+        for i in range(5):
+            for r in _ROT[i % 2]:
+                x0 = x0 + x1
+                x1 = _rotl(x1, r) ^ x0
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3] + _U32(i + 1)
+    return x0, x1
+
+
+def key(seed: int) -> np.ndarray:
+    """`jax.random.key(seed)`'s data."""
+    s = int(seed) % 2**64
+    return np.array([s >> 32, s & 0xFFFFFFFF], _U32)
+
+
+def _as_key(k) -> np.ndarray:
+    return key(k) if isinstance(k, (int, np.integer)) else np.asarray(k, _U32)
+
+
+def _counts(n: int):
+    i = np.arange(n, dtype=np.uint64)
+    return (i >> np.uint64(32)).astype(_U32), (i & np.uint64(0xFFFFFFFF)).astype(_U32)
+
+
+def split(k, n: int = 2) -> np.ndarray:
+    """`jax.random.split(k, n)`'s data, (n, 2) uint32; a batch of keys
+    (..., 2) splits each, (..., n, 2)."""
+    b0, b1 = threefry2x32(_as_key(k)[..., None, :], *_counts(n))
+    return np.stack([b0, b1], axis=-1)
+
+
+def fold_in(k, data: int) -> np.ndarray:
+    """`jax.random.fold_in(k, data)`'s data."""
+    b0, b1 = threefry2x32(_as_key(k), np.zeros(1, _U32), np.array([int(data) % 2**32], _U32))
+    return np.array([b0[0], b1[0]], _U32)
+
+
+def random_bits32(k, n: int) -> np.ndarray:
+    """(n,) uint32: `jax.random.bits(k, (n,), uint32)`; (..., n) for a
+    batch of keys (..., 2)."""
+    b0, b1 = threefry2x32(_as_key(k)[..., None, :], *_counts(n))
+    return b0 ^ b1
+
+
+def shuffle_rounds(n: int) -> int:
+    """The rounds `_shuffle` takes for n items."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
+def permutation(k, x) -> np.ndarray:
+    """`jax.random.permutation(k, x)`: a shuffled arange(x) for an int x, a
+    shuffled copy of a 1-D array x.  A batch of keys (..., 2) gives one
+    permutation per key, (..., n), as `jax.vmap` over the keys does."""
+    x = np.arange(int(x)) if np.ndim(x) == 0 else np.asarray(x)
+    if x.ndim != 1:
+        raise ValueError(f"permutation takes an int or a 1-D array, got shape {x.shape}")
+    k = _as_key(k)
+    out = np.broadcast_to(x, k.shape[:-1] + x.shape)
+    for _ in range(shuffle_rounds(x.size)):
+        both = split(k)
+        k, sub = both[..., 0, :], both[..., 1, :]
+        order = np.argsort(random_bits32(sub, x.size), axis=-1, kind="stable")
+        out = np.take_along_axis(out, order, axis=-1)
+    return np.array(out)

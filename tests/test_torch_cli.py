@@ -9,9 +9,13 @@ column sign alignment of the state).  The nir state block printed with
 --format eigen-complex must equal the reference's byte for byte (M = 1:
 no eigenvector sign), as tests/test_cli.py:212-236 checks for pls_tpu.
 The report tables are read with chip_smoke.py's parser, which the card
-run uses on the same output.
+run uses on the same output.  `--cv kfold --kfold-k 5`, `--cv all` and
+`--cv lso --rng jax --seed 3` print, on toy and nir in float64, the same
+stderr bytes as `pls_tpu.config.run_pipeline` (both run in process).
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -92,8 +96,8 @@ def test_bad_argc_exits_100():
     "extra,needle",
     [
         ((), "Error: row 1 has 2 columns, but previous row(s) have 3 columns."),
-        (("--cv", "kfold"), "ROADMAP queue 1 item 8"),
-        (("--cv", "all"), "ROADMAP queue 1 item 8"),
+        (("--cv", "kfold"), "Error: row 1 has 2 columns, but previous row(s) have 3 columns."),
+        (("--cv", "all"), "Error: row 1 has 2 columns, but previous row(s) have 3 columns."),
         (("--preprocess", "snv"), "ROADMAP queue 1 item 11"),
     ],
 )
@@ -143,3 +147,59 @@ def test_bf16_x_storage_within_budget(tmp_path):
     rep = parse_report(r.stderr)
     gold = np.loadtxt(GOLDEN / "nir_ev.csv", delimiter=",", ndmin=2)
     np.testing.assert_allclose(rep["ev"], gold, atol=2e-3)
+
+
+# ---------- stderr bytes against the JAX package's pipeline ----------
+PARITY_ARGS = {
+    "kfold5": ["--cv", "kfold", "--kfold-k", "5"],
+    "all": ["--cv", "all"],
+    "lso_jax": ["--cv", "lso", "--rng", "jax", "--seed", "3"],
+}
+PARITY_DATA = {"toy": ("toyX.csv", "toyY.csv", 2), "nir": ("nir.csv", "octane.csv", 10)}
+
+
+def _parity_argv(data, case):
+    xf, yf, A = PARITY_DATA[data]
+    return [str(DATA / xf), str(DATA / yf), str(A), *PARITY_ARGS[case]]
+
+
+def _stderr_of(main, argv):
+    err, out = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+        rc = main(argv)
+    assert rc == 0, err.getvalue()[-2000:]
+    assert out.getvalue() == ""
+    return err.getvalue()
+
+
+@pytest.fixture(scope="module")
+def jax_stderr():
+    """The JAX package's CLI (in process, float64 on the CPU) for every
+    parity case, run once for the module."""
+    from pls_tpu.cli import main as jax_main
+
+    return {(d, c): _stderr_of(jax_main, _parity_argv(d, c)) for d in PARITY_DATA for c in PARITY_ARGS}
+
+
+@pytest.mark.parametrize("case", sorted(PARITY_ARGS))
+@pytest.mark.parametrize("data", sorted(PARITY_DATA))
+def test_cv_stderr_bytes_match_jax(data, case, jax_stderr):
+    from pls_tpu_torch.cli import main
+
+    mine = _stderr_of(main, _parity_argv(data, case))
+    assert mine == jax_stderr[(data, case)]
+    if case != "lso_jax":
+        k = 5 if case == "kfold5" else 10
+        assert f"{k}-FOLD Validation:" in mine
+
+
+def test_kfold_json_report(tmp_path):
+    from pls_tpu_torch.config import PLSRunConfig, run_pipeline
+
+    out = tmp_path / "r.json"
+    cfg = PLSRunConfig(str(DATA / "toyX.csv"), str(DATA / "toyY.csv"), 2, cv=("kfold",),
+                       kfold_k=5, json_out=str(out))
+    rep = run_pipeline(cfg, file=io.StringIO(), device="cpu")
+    assert json.loads(out.read_text()) == rep
+    assert rep["kfold_k"] == 5 and np.asarray(rep["kfold_rmse"]).shape == (2, 2)
+    assert list(rep)[-3:] == ["kfold_k", "kfold_rmse", "kfold_optimal_components"]

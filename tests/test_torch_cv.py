@@ -122,9 +122,13 @@ def test_lso_torch_generator(toy):
     assert all(sorted(p.tolist()) == list(range(10)) for p in parts)
     assert torch.equal(parts, tt.random_partitions(torch.Generator().manual_seed(4), 10, 8))
     model = tt.PLSModel(X, Y, tt.KERNEL_TYPE1, 2)
-    a, b = model.cv_LSO(0.3, 8, 4), model.cv_LSO(0.3, 8, torch.Generator().manual_seed(4))
+    a = model.cv_LSO(0.3, 8, torch.Generator().manual_seed(4))
+    b = tt.cv_lso(X, Y, 2, 0.3, 8, generator=torch.Generator().manual_seed(4))
     assert a.errors.shape == (2, 8 * 3, 2)
     assert torch.equal(a.errors, b.errors)
+    # an int is a JAX seed: the JAX package's partitions
+    c = tt.cv_lso(X, Y, 2, 0.3, 8, partitions=tt.random_partitions(4, 10, 8))
+    assert torch.equal(model.cv_LSO(0.3, 8, 4).errors, c.errors)
     assert tt.lso_sizes(60, 0.3) == (42, 18)
     with pytest.raises(ValueError):
         tt.lso_sizes(10, 0.01)
