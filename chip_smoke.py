@@ -11,13 +11,17 @@ Phases, each of which fails the run:
   2. kernel vs plain: the f32 (K1) and bf16 (K2) kernels against
      `deflate_pass_plain` on the same inputs and against f64 truth on the
      card, at every shape the main path gives them (toy 10×15, nir 60×401,
-     100000×5000) and at (130, 96), (300, 401), (4096, 5000) and a K too
-     wide for the staged form (2048, 30000); relative error of t, p and
-     tt ≤ 1e-5 against both, and two launches bit-identical; then every
+     100000×5000) and at (130, 96), (300, 401), (4096, 5000), (65536,
+     2048), a ragged (4099, 5000), K = 8 (1000, 8), a bf16 K too wide for
+     the column-owning path (1024, 16384) and a K too wide for the staged
+     form (2048, 30000), printing each launch's path (cols / staged /
+     scalar / wide); relative error of t, p and tt ≤ 1e-5 against both,
+     and two launches bit-identical; then every
      variant of the kernel-variant sweep's default lists (K3, K4 at
-     DEFAULT/HIGH/HIGHEST, K5) against its plain version and f64 at
-     10×15, 130×96, 300×401 (scalar staging), 4096×5000 and 65536×2048,
-     two launches bit-identical: K3, K5 and K4-HIGHEST ≤ 1e-5 against
+     DEFAULT/HIGH/HIGHEST, K5 in both designs) against its plain version
+     and f64 at 10×15, 130×96, 300×401 (scalar staging), 4096×5000 and
+     65536×2048 (a cols_bf16 variant must refuse K % 8 != 0), two
+     launches bit-identical: K3, K5 and K4-HIGHEST ≤ 1e-5 against
      both; K4 DEFAULT/HIGH ≤ 1e-5 in t and tt against plain, p ≤ 1e-5
      against the plain second product on the kernel's own t (and at
      HIGH against the whole plain chain), and within 10× the plain
@@ -29,11 +33,19 @@ Phases, each of which fails the run:
   4. main path at real size: PLSModel on 100000×5000 X, 10 Y, 20
      components (the repo's single-chip configuration, BASELINE.json),
      made on the card from --seed; f32 against the same fit in f64, and
-     x_storage="bf16" against f32 within the bf16 budget;
-  5. timing with CUDA events (median of 25 after warm-up) at 100000×5000:
-     K1, K2, the plain two-product form in f32 and in bf16-upcast, the
-     card's device-to-device copy ceiling, and the 20-component fit; and
-     the wide-K form of K1 and K2 against the plain form at 20000×30000;
+     x_storage="bf16" against f32 within the bf16 budget, all 20 of its
+     K2 launches on the cols path; the f32 and bf16 fit walls, warm, in
+     turns (f32, bf16, bf16, f32, f32, bf16);
+  5. timing with CUDA events (median of 25 after warm-up, one call per
+     event pair; and back to back, 10 calls per pair, 5 pairs) at
+     100000×5000: K1; K2 in its column-owning design beside its earlier
+     row-staged design (`ops.deflate.staged_plan_for`), in turns (cols,
+     staged, staged, cols); the plain
+     two-product form in f32 and in bf16-upcast; the library yardsticks
+     (two f32 `torch.matmul` products; two bf16 cuBLAS products with r
+     and t rounded to bf16, a looser function); the card's
+     device-to-device copy ceiling; and the wide-K form of K1 and K2
+     against the plain form at 20000×30000;
   6. the sweep path: `pls_tpu_torch.tools.kernel_variants.sweep` at its
      default 65536×2048 and at 100000×5000, in f32 and in bf16, printing
      its tables (every variant beside the shipped kernel, the plain form
@@ -57,8 +69,12 @@ Phases, each of which fails the run:
 The K1/K2 launch counts are set to 0 just before phase 3 and read just
 after phase 4; the K3-K5 counts just before and after phase 6; all of
 them just before and after phase 7, where they stay 0.  The last
-two lines of stdout are the kernels' JSON record (K1-K5; K3-K5's ms is
-the best variant's at 65536×2048) and {"ok": true, "device": {...}};
+two lines of stdout are the kernels' JSON record (K1-K5; ms is the
+back-to-back time per call, K1/K2 at 100000×5000, K3-K5 of the best
+variant at 65536×2048 by the sweep's chain slope, timed again back to
+back; K5's the faster of its two designs' best, timed in turns; each
+with bound_ms, the larger of its bytes over 3.35 TB/s and its flops over
+67 TFLOP/s f32, and library_ms) and {"ok": true, "device": {...}};
 the card's nvidia-smi line is printed in phase 1.  Without a CUDA device,
 or outside a checkout of the repo, the script exits non-zero and prints
 neither.
@@ -106,7 +122,14 @@ BF16_EV_ATOL = 2e-3
 BIG = (100_000, 5_000)
 # every (N, K) the main path hands the kernel: toy, nir, the real-size fit
 MAIN_PATH_SHAPES = [(10, 15), (60, 401), BIG]
+# K2's column-owning path: the sweep's shape, a ragged last tile, K = 8;
+# then a bf16 K past it (row-staged) and a K past the staged form (wide)
+KERNEL_SHAPES = [(130, 96), (300, 401), (4096, 5000), (65_536, 2_048), (4099, 5000), (1000, 8),
+                 (1024, 16_384), (2048, 30_000)]
 WIDE = (20_000, 30_000)  # K past the staged form: the two-pass wide-K form
+# the published H100 SXM peaks the bound is taken against (700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 # phase 6: the kernel-variant sweep's path
 SWEEP = (65_536, 2_048)  # the sweep's default size
 SWEEP_ITERS = 10
@@ -127,13 +150,15 @@ STATS_CHUNK = 8192  # rows per chunk when writing the files
 STATS_RTOL = 1e-4  # XᵀX, XᵀY: relative Frobenius error against f64
 LOO_ATOL = 5e-3  # held-out errors, relative to Y's scale (σ = 1 after z-scoring)
 
-# (kernel name, its source in pls_tpu_torch/csrc, the TPU kernel it replaces)
+# (kernel name, its source in pls_tpu_torch/csrc, the TPU kernel it
+# replaces, the launch counters that are its launches)
 KERNELS = [
-    ("deflate_f32", "deflate.cu", "pls_tpu/ops/deflate.py:83"),
-    ("deflate_bf16", "deflate.cu", "pls_tpu/ops/deflate.py:102"),
-    ("vpu_f32", "deflate_variants.cu", "tools/kernel_variants.py:72"),
-    ("mxu_f32", "deflate_variants.cu", "tools/kernel_variants.py:153"),
-    ("vpu_bf16", "deflate_variants.cu", "tools/kernel_variants.py:208"),
+    ("deflate_f32", "deflate.cu", "pls_tpu/ops/deflate.py:83", ("deflate_f32",)),
+    ("deflate_bf16", "deflate.cu", "pls_tpu/ops/deflate.py:102", ("deflate_bf16",)),
+    ("vpu_f32", "deflate_variants.cu", "tools/kernel_variants.py:72", ("vpu_f32",)),
+    ("mxu_f32", "deflate_variants.cu", "tools/kernel_variants.py:153", ("mxu_f32",)),
+    ("vpu_bf16", "deflate_variants.cu", "tools/kernel_variants.py:208",
+     ("vpu_bf16", "cols_bf16")),
 ]
 
 
@@ -249,15 +274,18 @@ def phase_kernel(deflate, dev, seed: int) -> dict:
     """Returns {kernel name: max |kernel - plain| of t and p over the shapes}."""
     abs_err = {"deflate_f32": 0.0, "deflate_bf16": 0.0}
     g = torch.Generator(dev).manual_seed(seed)
-    for N, K in MAIN_PATH_SHAPES + [(130, 96), (300, 401), (4096, 5000), (2048, 30_000)]:
+    for N, K in MAIN_PATH_SHAPES + KERNEL_SHAPES:
         X32 = torch.randn((N, K), generator=g, device=dev)
         r = torch.randn(K, generator=g, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             X = X32.to(dtype)
             name = deflate.kernel_name(dtype)
+            before = dict(deflate.path_launches)
             t, tt, p = deflate.deflate_pass_cuda(X, r)
             t2, tt2, p2 = deflate.deflate_pass_cuda(X, r)
             torch.cuda.synchronize()
+            path = [k for k, v in deflate.path_launches.items() if v != before[k]]
+            check(path == [deflate.plan_for(X, r).path], f"{name} {N}x{K}: launched {path}")
             check(torch.equal(t, t2) and torch.equal(p, p2) and torch.equal(tt, tt2),
                   f"{name} {N}x{K}: two launches differ")
             tp, ttp, pp = deflate.deflate_pass_plain(X, r)
@@ -270,7 +298,8 @@ def phase_kernel(deflate, dev, seed: int) -> dict:
             e_tt = abs(float(tt) - float(ttd)) / float(ttd)
             q_p, q_t = rel_err(p, pp), rel_err(t, tp)
             q_tt = abs(float(tt) - float(ttp)) / float(ttp)
-            print(f"{name} {N}x{K}: vs f64 rel p {e_p:.3e} tt {e_tt:.3e} t {e_t:.3e}; "
+            print(f"{name} {N}x{K} {path[0]} {deflate.plan_for(X, r)}: "
+                  f"vs f64 rel p {e_p:.3e} tt {e_tt:.3e} t {e_t:.3e}; "
                   f"vs plain rel p {q_p:.3e} tt {q_tt:.3e} t {q_t:.3e}; "
                   f"bit-identical relaunch")
             check(tuple(t.shape) == (N,) and tuple(p.shape) == (K,) and tt.dim() == 0,
@@ -365,21 +394,28 @@ def phase_big(deflate, dev, seed: int) -> float:
           f"vs f64 (plain path, wall {wall64:.3f} s): coef rel {e_b:.3e}, ev abs {e_ev:.3e}")
     check(e_b <= FIT_COEF_RTOL and e_ev <= FIT_EV_ATOL, "100k×5k f32 fit disagrees with f64")
     del B64, ev64
-    before = dict(deflate.launches)
+    before, cols_before = dict(deflate.launches), deflate.path_launches["cols"]
     _, B16, ev16, wall16 = fit_big(X, Y, x_storage="bf16")
     d16 = deflate.launches["deflate_bf16"] - before["deflate_bf16"]
+    d_cols = deflate.path_launches["cols"] - cols_before
     e_b16, e_ev16 = rel_err(B16, B32), float((ev16 - ev32).abs().max())
-    print(f"100k×5k×10 A=20 bf16 storage: wall {wall16:.3f} s, launches {d16}; "
-          f"vs f32: coef rel {e_b16:.3e}, ev abs {e_ev16:.3e}")
-    check(d16 == 20, f"bf16 fit: {d16} launches, expected 20")
+    print(f"100k×5k×10 A=20 bf16 storage: wall {wall16:.3f} s, launches {d16} ({d_cols} on the "
+          f"cols path); vs f32: coef rel {e_b16:.3e}, ev abs {e_ev16:.3e}")
+    check(d16 == 20 and d_cols == 20, f"bf16 fit: {d16} launches, {d_cols} cols, expected 20")
     check(e_b16 <= BF16_COEF_RTOL and e_ev16 <= BF16_EV_ATOL, "bf16 fit outside its budget")
-    walls = [fit_big(X, Y)[3] for _ in range(3)]
-    print(f"100k×5k×10 A=20 f32 fit wall, warm: median {statistics.median(walls):.4f} s "
-          f"of {[round(w, 4) for w in walls]}")
-    return statistics.median(walls)
+    walls = {"f32": [], "bf16": []}
+    for storage in ("f32", "bf16", "bf16", "f32", "f32", "bf16"):  # in turns
+        walls[storage].append(fit_big(X, Y, **({"x_storage": "bf16"} if storage == "bf16"
+                                              else {}))[3])
+    fit_walls = {k: statistics.median(v) for k, v in walls.items()}
+    for k, v in walls.items():
+        print(f"100k×5k×10 A=20 {k} fit wall, warm: median {fit_walls[k]:.4f} s "
+              f"of {[round(w, 4) for w in v]}")
+    return fit_walls
 
 
-def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+def times_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 1) -> list[float]:
+    """CUDA-event times of `inner` calls of fn back to back, per call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -388,29 +424,74 @@ def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+        times.append(e0.elapsed_time(e1) / inner)
+    return times
+
+
+def median_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 1) -> float:
+    return statistics.median(times_ms(fn, reps, warmup, inner))
+
+
+def bound(N: int, K: int, itemsize: int) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time of one pass on the
+    published H100 SXM peaks, X and r read once, t, p and tt written once,
+    against 4·N·K + 2·K f32 flops."""
+    byte_ms = (N * K * itemsize + 4 * (2 * K + N + 1)) / HBM_BYTES_PER_S * 1e3
+    flop_ms = (4 * N * K + 2 * K) / F32_FLOPS * 1e3
+    return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
+
+
+def library_pass(X: torch.Tensor, r: torch.Tensor):
+    """The two library products of the pass: t = X r, p = Xᵀt; on bf16 X
+    with r and t rounded to bf16 (cuBLAS has no bf16 × f32 product)."""
+    rr = r.to(X.dtype)
+    t = X @ rr
+    return t, X.T @ t
 
 
 def phase_timing(deflate, dev, seed: int) -> dict:
+    """{kernel name: (ms, plain ms, library ms, bound ms, bound_by)} of K1
+    and K2 at 100000×5000."""
     N, K = BIG
     g = torch.Generator(dev).manual_seed(seed + 1)
     X = torch.randn((N, K), generator=g, device=dev)
     Xb = X.to(torch.bfloat16)
     r = torch.randn(K, generator=g, device=dev)
-    out = {
-        "deflate_f32": (median_ms(lambda: deflate.deflate_pass_cuda(X, r)),
-                        median_ms(lambda: deflate.deflate_pass_plain(X, r))),
-        "deflate_bf16": (median_ms(lambda: deflate.deflate_pass_cuda(Xb, r)),
-                         median_ms(lambda: deflate.deflate_pass_plain(Xb, r))),
-    }
-    for name, (ms, plain_ms) in out.items():
-        nbytes = N * K * (4 if name == "deflate_f32" else 2)
-        print(f"{name} {N}x{K}: kernel {ms:.4f} ms = {nbytes / ms / 1e6:.1f} GB/s one-pass; "
-              f"plain {plain_ms:.4f} ms = {nbytes / plain_ms / 1e6:.1f} GB/s one-pass")
+    check(deflate.plan_for(Xb, r).path == "cols" and deflate.staged_plan_for(Xb, r).path
+          == "staged", f"K2 {N}x{K}: the two designs are not planned")
+    designs = {"K1": lambda: deflate.deflate_pass_cuda(X, r),
+               "K2 cols": lambda: deflate.deflate_pass_cuda(Xb, r),
+               "K2 staged": lambda: deflate._launch(Xb, r, deflate.staged_plan_for)}
+    one, b2b = {k: [] for k in designs}, {k: [] for k in designs}
+    # K2's two designs in turns: cols, staged, staged, cols
+    for key in ("K1", "K2 cols", "K2 staged", "K2 staged", "K2 cols"):
+        one[key] += times_ms(designs[key])
+        b2b[key] += times_ms(designs[key], reps=5, inner=10)
+    out = {}
+    for name, XX, key in (("deflate_f32", X, "K1"), ("deflate_bf16", Xb, "K2 cols")):
+        plain_ms = median_ms(lambda: deflate.deflate_pass_plain(XX, r))
+        lib_ms = median_ms(lambda: library_pass(XX, r))
+        b_ms, b_by = bound(N, K, XX.element_size())
+        out[name] = (statistics.median(b2b[key]), plain_ms, lib_ms, b_ms, b_by)
+        print(f"{name} {N}x{K} {deflate.plan_for(XX, r)}: bound {b_ms:.4f} ms ({b_by}); plain "
+              f"{plain_ms:.4f} ms; library (two {'bf16' if XX.element_size() == 2 else 'f32'} "
+              f"products) {lib_ms:.4f} ms")
+    for key in designs:
+        XX = X if key == "K1" else Xb
+        b_ms = bound(N, K, XX.element_size())[0]
+        ms, ms2 = statistics.median(one[key]), statistics.median(b2b[key])
+        gbs = N * K * XX.element_size() / ms2 / 1e6
+        print(f"{key} {N}x{K}: one call {ms:.4f} ms (spread {min(one[key]):.4f}-"
+              f"{max(one[key]):.4f}), back to back {ms2:.4f} ms per call (spread "
+              f"{min(b2b[key]):.4f}-{max(b2b[key]):.4f}) = {gbs:.1f} GB/s one-pass; "
+              f"{b_ms / ms:.3f} / {b_ms / ms2:.3f} of the bound")
+    gain = [statistics.median(d["K2 staged"]) / statistics.median(d["K2 cols"]) for d in (one, b2b)]
+    print(f"K2 cols vs staged at {N}x{K}: {gain[0]:.3f}x (one call), {gain[1]:.3f}x (back to "
+          f"back) faster")
     dst = torch.empty_like(X)
     copy_ms = median_ms(lambda: dst.copy_(X))
     print(f"device-to-device copy of {4 * N * K} B: {copy_ms:.4f} ms = "
@@ -458,7 +539,14 @@ def phase_variants(dv, kv, dev, seed: int) -> dict:
             del Xd
         worst = [0.0] * 6  # VPU forms: t, p, tt vs plain, then vs f64
         for v in variants:
+            prec = getattr(v, "prec", None)  # K4's; the column-owning rows have none
             X = X32.to(v.dtype)
+            if not v.takes(X):  # cols_bf16 at K % 8 != 0: refuses, never falls back
+                try:
+                    v.cuda(X, r)
+                except ValueError:
+                    continue
+                raise SmokeFailure(f"{v.name} {N}x{K}: ran a shape it does not take")
             out = v.cuda(X, r)
             again = v.cuda(X, r)
             torch.cuda.synchronize()
@@ -471,20 +559,20 @@ def phase_variants(dv, kv, dev, seed: int) -> dict:
             q = _rel3(out, plain)
             e = _rel3(out, truth[v.dtype])
             budget = KERNEL_RTOL
-            if v.prec in ("DEFAULT", "HIGH"):
+            if prec in ("DEFAULT", "HIGH"):
                 # against f64: within 10× the error of the plain emulation itself
                 budget = 10 * max(_rel3(plain, truth[v.dtype]))
-            if v.prec:
+            if prec:
                 # K4's p against the plain second product on the kernel's own t
                 # (see mxu_plain_p); at DEFAULT the whole chain's p is printed
                 # only, as a last-bit flip of tᵢ can move its bf16 rounding
-                p_own = dv.mxu_plain_p(X, out[0], v.prec)
+                p_own = dv.mxu_plain_p(X, out[0], prec)
                 q_own = rel_err(out[2], p_own)
                 check(max(q[0], q_own, q[2]) <= KERNEL_RTOL,
                       f"{v.name} {N}x{K}: vs plain rel err t {q[0]:.2e} p (own t) "
                       f"{q_own:.2e} tt {q[2]:.2e} > {KERNEL_RTOL}")
                 line = f"p on own t {q_own:.2e}"
-                if v.prec == "DEFAULT":
+                if prec == "DEFAULT":
                     # the check's power: p with t left unrounded (a kernel that
                     # skips t's bf16 re-rounding) must fall outside the bound
                     ctrl = rel_err(X.to(torch.bfloat16).float().T @ out[0], p_own)
@@ -534,23 +622,45 @@ def phase_sweep(kv, seed: int) -> dict:
 
 
 def best_variant_times(dv, kv, tables: dict, dev, seed: int) -> dict:
-    """{kernel name: (ms of its best variant at the sweep's default size,
-    ms of that variant's plain version on the same shape)}."""
+    """{kernel name: (ms, its plain version's ms, the library products' ms,
+    bound ms, bound_by)} at the sweep's default size.  Each kernel's best
+    variant by the sweep's chain slope is timed again back to back (10
+    calls per event pair): the chain slope carries the host's time per
+    chained step.  K5's best row-staged and best column-owning variants
+    are timed in turns, and its ms is the faster one's."""
     out = {}
     n, k = SWEEP
     g = torch.Generator(dev).manual_seed(seed + 3)
     X32 = torch.randn((n, k), generator=g, device=dev)
     r = torch.randn(k, generator=g, device=dev)
-    for kind in dv.launches:
-        bf16 = kind == "vpu_bf16"
-        prefix = {"vpu_f32": "vpu_1k_", "mxu_f32": "mxu_", "vpu_bf16": "vpu_bf16_"}[kind]
-        rows = [row for row in tables[(n, k, bf16)] if row["name"].startswith(prefix)]
-        best = min(rows, key=lambda row: row["ms"])
-        v = next(v for v in kv.default_variants(bf16) if v.name == best["name"])
-        X = X32.to(v.dtype)
-        out[kind] = (best["ms"], median_ms(lambda: v.plain(X, r)))
-        print(f"{kind}: best variant at {n}x{k} {best['name']} {best['ms']:.4f} ms; "
-              f"its plain version {out[kind][1]:.4f} ms")
+    for name, prefixes in (("vpu_f32", ("vpu_1k_",)), ("mxu_f32", ("mxu_",)),
+                           ("vpu_bf16", ("vpu_bf16_", "cols_bf16_"))):
+        bf16 = name == "vpu_bf16"
+        variants = {v.name: v for v in kv.default_variants(bf16)}
+        best = {}
+        for prefix in prefixes:
+            rows = [row for row in tables[(n, k, bf16)] if row["name"].startswith(prefix)]
+            row = min(rows, key=lambda row: row["ms"])
+            best[row["name"]] = (variants[row["name"]], row["ms"])
+        X = X32.to(torch.bfloat16 if bf16 else torch.float32)
+        times = {v_name: [] for v_name in best}
+        order = list(best) + list(best)[::-1]  # in turns: a, b, b, a
+        for v_name in order:
+            v = best[v_name][0]
+            times[v_name] += times_ms(lambda: v.cuda(X, r), reps=5, inner=10)
+        ms = {v_name: statistics.median(t) for v_name, t in times.items()}
+        b_ms, b_by = bound(n, k, X.element_size())
+        for v_name, t in times.items():
+            print(f"{name}: {v_name} at {n}x{k}: back to back {ms[v_name]:.4f} ms per call "
+                  f"(spread {min(t):.4f}-{max(t):.4f}; chain slope {best[v_name][1]:.4f}), "
+                  f"{b_ms / ms[v_name]:.3f} of the {b_ms:.4f} ms bound ({b_by})")
+        fastest = min(ms, key=ms.get)
+        v = best[fastest][0]
+        out[name] = (ms[fastest], median_ms(lambda: v.plain(X, r)),
+                     median_ms(lambda: library_pass(X, r)), b_ms, b_by)
+        print(f"{name}: best variant at {n}x{k} {fastest} {ms[fastest]:.4f} ms; its plain "
+              f"version {out[name][1]:.4f} ms; library (two {'bf16' if bf16 else 'f32'} "
+              f"products) {out[name][2]:.4f} ms")
     return out
 
 
@@ -766,13 +876,14 @@ def main() -> int:
     abs_err = phase_kernel(deflate, dev, args.seed)
     abs_err.update(phase_variants(dv, kv, dev, args.seed))
 
-    for k in deflate.launches:  # the main path's run starts here
-        deflate.launches[k] = 0
+    for counts in (deflate.launches, deflate.path_launches):  # the main path's run starts here
+        for k in counts:
+            counts[k] = 0
     cli_walls = phase_cli(deflate)
-    fit_wall = phase_big(deflate, dev, args.seed)
+    fit_walls = phase_big(deflate, dev, args.seed)
     launches = dict(deflate.launches)  # ... and ends here
-    print(f"main path launches: {launches}; cli walls {cli_walls}; "
-          f"20-component fit wall {fit_wall:.4f} s")
+    print(f"main path launches: {launches}, by path {deflate.path_launches}; cli walls "
+          f"{cli_walls}; 20-component fit walls {fit_walls}")
     check(all(v > 0 for v in launches.values()), "a kernel of the path never launched")
 
     times = phase_timing(deflate, dev, args.seed)
@@ -797,9 +908,11 @@ def main() -> int:
     check("jax" not in sys.modules and "pls_tpu" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"pls_tpu_torch/csrc/{source}",
-         "replaces": replaces, "launches": launches[name],
-         "max_abs_err": abs_err[name], "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, source, replaces in KERNELS
+         "replaces": replaces, "launches": sum(launches[c] for c in counters),
+         "max_abs_err": max(abs_err[c] for c in counters), "ms": times[name][0],
+         "plain_ms": times[name][1], "bound_ms": times[name][3], "bound_by": times[name][4],
+         "library_ms": times[name][2]}
+        for name, source, replaces, counters in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,10 @@ Counterpart of `pls_tpu/cli.py` (reference main.cpp:10-44):
   package's keyed fold labels, `--rng jax` its keyed LSO partitions;
 - all output on stderr; stdout stays empty.
 
-The run is on CUDA device 0 when PyTorch sees a card, else on the CPU.
+The run is on CUDA device 0 (`--device cuda`, the default) or, when asked,
+on the CPU (`--device cpu`), the counterpart of the JAX CLI's
+`JAX_PLATFORMS` handling.  Without a card and without `--device cpu` it
+prints "Error: ..." and exits 1: it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -71,6 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--x-storage", choices=["native", "bf16"], default="native",
         help="'bf16' stores X in bfloat16 with f32 accumulation",
     )
+    p.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="where the run goes: CUDA device 0 (default; exit 1 without a card) or the CPU",
+    )
     p.add_argument("--preprocess", default=None, metavar="CHAIN")
     p.add_argument(
         "--format", choices=["real", "eigen-complex"], default="real", dest="fmt",
@@ -93,9 +100,17 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Error: {_NOT_PORTED_PREPROCESS}", file=sys.stderr)
         return 1
 
-    from pls_tpu_torch.config import PLSRunConfig, run_pipeline
+    import torch
+
+    from pls_tpu_torch.config import PLSRunConfig, default_device, run_pipeline
     from pls_tpu_torch.types import METHOD
     from pls_tpu_torch.utils.io import RaggedMatrixError
+
+    try:
+        device = torch.device("cpu") if args.device == "cpu" else default_device()
+    except RuntimeError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
 
     cfg = PLSRunConfig(
         x_file=args.x_file,
@@ -118,7 +133,7 @@ def main(argv: list[str] | None = None) -> int:
         x_storage=None if args.x_storage == "native" else args.x_storage,
     )
     try:
-        run_pipeline(cfg)
+        run_pipeline(cfg, device=device)
     except RaggedMatrixError as e:
         print(str(e), file=sys.stderr)
         return e.exit_code

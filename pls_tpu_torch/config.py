@@ -37,15 +37,34 @@ class PLSRunConfig:
 
 
 def default_device() -> torch.device:
-    """CUDA device 0 when PyTorch sees one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """CUDA device 0.  The port runs on the card unless a caller asks for
+    the CPU, so without a card this raises RuntimeError instead of falling
+    back: pass device="cpu" (`--device cpu` on the command line)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            'no CUDA device: pass device="cpu" (--device cpu on the command line) '
+            "to run on the CPU"
+        )
+    return torch.device("cuda", 0)
+
+
+def resolve_device(device=None, like=None) -> torch.device:
+    """The device an entry point runs on: `device` when the caller gives
+    one, else that of the tensor `like` the caller passed in, else
+    `default_device()` (the card, or RuntimeError without one)."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(like, torch.Tensor):
+        return like.device
+    return default_device()
 
 
 def run_pipeline(cfg: PLSRunConfig, *, file=None, device: torch.device | None = None) -> dict:
     """Run the reference CLI pipeline (reference main.cpp:21-41) under
     `cfg`: read → z-score both → fit → print state + EV → LOO → LSO →
     k-fold (`pls_tpu/config.py:40-129`).  Returns the report dict; raises
-    utils.io errors on bad input."""
+    utils.io errors on bad input.  `device` None is `default_device()`:
+    the card, or RuntimeError without one."""
     from pls_tpu_torch.cv.validation import optimal_num_components, print_validation, validation
     from pls_tpu_torch.model import PLSModel
     from pls_tpu_torch.ops.stats import colwise_z_scores
@@ -54,7 +73,7 @@ def run_pipeline(cfg: PLSRunConfig, *, file=None, device: torch.device | None = 
     from pls_tpu_torch.utils.io import read_matrix_file
 
     file = sys.stderr if file is None else file
-    device = default_device() if device is None else torch.device(device)
+    device = resolve_device(device)
     if device.type == "cuda":
         # full float32 products, as the JAX package's precision="highest"
         torch.backends.cuda.matmul.allow_tf32 = False

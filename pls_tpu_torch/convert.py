@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pls_tpu_torch.config import resolve_device
 from pls_tpu_torch.models.streaming import FoldStatsAccumulator, StatsAccumulator
 from pls_tpu_torch.types import METHOD, PLSFit
 
@@ -29,7 +30,8 @@ def fit_from_numpy(
     dtype: torch.dtype | None = None,
 ) -> PLSFit:
     """The port's PLSFit from numpy arrays W, P, Q, R, T (as in the JAX
-    package's PLSFit or its .npz)."""
+    package's PLSFit or its .npz), on `device` (None: the card)."""
+    device = resolve_device(device)
     return PLSFit(
         **{k: torch.tensor(np.asarray(arrays[k]), dtype=dtype, device=device) for k in FIELDS},
         method=METHOD(method),
@@ -50,7 +52,9 @@ def stats_from_numpy(
     """The port's StatsAccumulator or FoldStatsAccumulator from a JAX
     accumulator's arrays: an object or dict with XX, XY, YY, sx, sy, n
     (StatsAccumulator) or XXf, XYf, YYf, sxf, syf, nf
-    (FoldStatsAccumulator), as numpy-convertible arrays."""
+    (FoldStatsAccumulator), as numpy-convertible arrays, on `device`
+    (None: the card)."""
+    device = resolve_device(device)
     def get(name):
         v = arrays[name] if isinstance(arrays, dict) else getattr(arrays, name)
         return np.asarray(v)

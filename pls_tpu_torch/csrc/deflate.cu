@@ -16,7 +16,14 @@
 // is to read X from device memory once, in coalesced 16-byte loads.  The
 // two-product form (t = X r, then p = Xᵀt) reads X twice.
 //
-// Design:
+// Paths, chosen per shape in Python (ops/deflate.py::choose_plan):
+//  - bf16 X with K % 8 == 0, X 16-byte aligned and K ≤ 10 240: the
+//    column-owning design of csrc/deflate_common.cuh (`deflate_cols<16, 1>`:
+//    a producer warp's TMA ring, 16 consumer warps that own columns);
+//  - otherwise, and for every f32 X (K1), the row-staged design below,
+//    with 16-byte or scalar staging, or its two-pass wide-K form.
+//
+// Row-staged design:
 //  - A persistent grid of one block per SM.  Each block of 8 warps walks
 //    a strided set of tiles of R rows.  The R rows of a tile are
 //    contiguous in X, so a tile is one flat copy.
@@ -30,9 +37,10 @@
 //    the staged rows into the block's p accumulator, also in shared
 //    memory (K floats).
 //  - R is the largest of 8, 4, 2, 1 whose two buffers and accumulator fit
-//    the block's shared memory (227 KB): R = 4 in f32 and 8 in bf16 at
-//    K = 5000.  One block with the largest tile beats two blocks with half
-//    the tile: what counts is the bytes in flight per SM.
+//    the block's shared memory (227 KB): R = 4 in f32 at K = 5000 (8 for
+//    bf16 X, which takes this path only past K = 10 240 or when a caller
+//    forces it).  One block with the largest tile beats two blocks with
+//    half the tile: what counts is the bytes in flight per SM.
 //  - Wider K (above about 19 000 in f32, 29 000 in bf16) does not fit even
 //    one row: then two passes over X run instead, t = X r one warp per
 //    row, and p in column strips, each block adding x_i t_i of a range of
@@ -50,78 +58,16 @@
 // sum's order, and so its last bits, change from run to run.  Instead each
 // block writes its accumulator to its own row of a (G, K) f32 buffer, and
 // a second kernel sums the G rows of each column in fixed order; a third,
-// single-block kernel takes tt = r·p by a fixed tree.  Results are
+// single-block kernel takes tt = r·p by a fixed tree (both kernels in
+// csrc/deflate_common.cuh, shared with every path).  Results are
 // bit-identical from run to run.
 //
 // Interface: plain C, loaded with ctypes (pls_tpu_torch/ops/deflate.py).
 // Every launch goes on the caller's stream; nothing is allocated here.
 
-#include <cuda_bf16.h>
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "deflate_common.cuh"
 
 namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kReduceThreads = 256;
-constexpr int kDotThreads = 1024;
-
-// V consecutive elements of X as one load: 16 bytes when V > 1.
-template <typename T, int V>
-struct Chunk {
-  using Raw = uint4;
-};
-template <typename T>
-struct Chunk<T, 1> {
-  using Raw = T;
-};
-
-template <typename T, int V>
-__device__ __forceinline__ void widen(const typename Chunk<T, V>::Raw& raw, float (&out)[V]) {
-  if constexpr (V == 1) {
-    if constexpr (sizeof(T) == 4) {
-      out[0] = raw;
-    } else {
-      out[0] = __bfloat162float(raw);
-    }
-  } else if constexpr (sizeof(T) == 4) {
-    static_assert(V == 4, "f32 vector loads are 4 wide");
-    out[0] = __uint_as_float(raw.x);
-    out[1] = __uint_as_float(raw.y);
-    out[2] = __uint_as_float(raw.z);
-    out[3] = __uint_as_float(raw.w);
-  } else {
-    static_assert(V == 8, "bf16 vector loads are 8 wide");
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      out[2 * k] = f.x;
-      out[2 * k + 1] = f.y;
-    }
-  }
-}
-
-// V consecutive floats of r (16-byte aligned when V > 1).
-template <int V>
-__device__ __forceinline__ void load_r(const float* __restrict__ p, float (&out)[V]) {
-  if constexpr (V == 1) {
-    out[0] = __ldg(p);
-  } else {
-#pragma unroll
-    for (int k = 0; k < V / 4; ++k) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(p) + k);
-      out[4 * k] = v.x;
-      out[4 * k + 1] = v.y;
-      out[4 * k + 2] = v.z;
-      out[4 * k + 3] = v.w;
-    }
-  }
-}
-
-__host__ __device__ constexpr int64_t align16(int64_t bytes) { return (bytes + 15) / 16 * 16; }
 
 // Dynamic shared memory of the main kernel: p accumulator, then two
 // buffers of R rows.
@@ -129,26 +75,6 @@ template <typename T>
 __host__ __device__ constexpr int64_t smem_bytes(int64_t K, int R) {
   return align16(K * static_cast<int64_t>(sizeof(float))) +
          2 * R * K * static_cast<int64_t>(sizeof(T));
-}
-
-// Starts the copy of rows [row0, row0 + rows) of X, which are contiguous,
-// into `buf`: asynchronous 16-byte copies (cp.async) when V > 1, plain
-// loads and stores otherwise.  Commits one pipeline group either way.
-template <typename T, int V>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ X, T* buf, int64_t row0,
-                                           int rows, int64_t K) {
-  using Raw = typename Chunk<T, V>::Raw;
-  const Raw* src = reinterpret_cast<const Raw*>(X + row0 * K);
-  Raw* dst = reinterpret_cast<Raw*>(buf);
-  const int64_t total = rows * (K / V);
-  for (int64_t c = threadIdx.x; c < total; c += kThreads) {
-    if constexpr (V > 1) {
-      __pipeline_memcpy_async(dst + c, src + c, sizeof(Raw));
-    } else {
-      dst[c] = src[c];
-    }
-  }
-  __pipeline_commit();
 }
 
 template <typename T, int V>
@@ -252,33 +178,6 @@ deflate_rows(const T* __restrict__ X, const float* __restrict__ r,
   for (int64_t c = threadIdx.x; c < K; c += kThreads) out[c] = p_acc[c];
 }
 
-// p[j] = Σ_g partial[g, j], g in increasing order.
-__global__ void __launch_bounds__(kReduceThreads)
-reduce_partials(const float* __restrict__ partial, float* __restrict__ p,
-                int64_t G, int64_t K) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kReduceThreads + threadIdx.x;
-  if (j >= K) return;
-  float s = 0.f;
-  for (int64_t g = 0; g < G; ++g) s += partial[g * K + j];
-  p[j] = s;
-}
-
-// tt = r · p in one block, by a fixed tree.
-__global__ void __launch_bounds__(kDotThreads)
-dot_rp(const float* __restrict__ r, const float* __restrict__ p,
-       float* __restrict__ tt, int64_t K) {
-  __shared__ float red[kDotThreads];
-  float s = 0.f;
-  for (int64_t j = threadIdx.x; j < K; j += kDotThreads) s = fmaf(r[j], p[j], s);
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int stride = kDotThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) tt[0] = red[0];
-}
-
 // Wide K, pass 1: t_i = x_i · r, one warp per row.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
@@ -336,44 +235,29 @@ strip_partials(const T* __restrict__ X, const float* __restrict__ t,
   for (int e = 0; e < V; ++e) out[e] = pa[e];
 }
 
-// Plans the pass for one shape, once: R, the rows per staged tile (the
-// largest of kWarps, ..., 2, 1 whose two buffers and accumulator fit one
-// block's shared memory; 0 when not even one row fits, and the two-pass
-// wide-K path runs), and G, the blocks that write the partial buffer (its
-// rows).  Raises the staged kernel's dynamic shared memory limit to the
-// device's maximum, so that every planned shape can launch.
+// Raises deflate_rows<T, V>'s dynamic shared memory limit to the device's
+// maximum; *budget: the dynamic bytes it may take, *sms: the SM count.
 template <typename T, int V>
-cudaError_t plan(int64_t N, int64_t K, int64_t* G, int* R) {
-  int dev = 0, optin = 0, sms = 0;
+cudaError_t rows_limits(int* budget, int* sms) {
+  int dev = 0, optin = 0;
   cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncGetAttributes(&attr, deflate_rows<T, V>);
-  if (err != cudaSuccess) return err;
-  const int budget = optin - static_cast<int>(attr.sharedSizeBytes);  // less t_part
-  err = cudaFuncSetAttribute(deflate_rows<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             budget);
-  if (err != cudaSuccess) return err;
-  *R = kWarps;
-  while (*R >= 1 && smem_bytes<T>(K, *R) > budget) *R /= 2;
-  if (*R > 0) {  // one block per SM, or one per tile when there are fewer tiles
-    const int64_t tiles = (N + *R - 1) / *R;
-    *G = sms < tiles ? sms : tiles;
-  } else {  // about 4 blocks per SM over strips × row ranges
-    const int64_t strips = (K / V + kThreads - 1) / kThreads;
-    const int64_t g = (4 * static_cast<int64_t>(sms) + strips - 1) / strips;
-    *G = g < N ? g : N;
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  return cudaSuccess;
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, deflate_rows<T, V>);
+  if (err != cudaSuccess) return err;
+  *budget = optin - static_cast<int>(attr.sharedSizeBytes);  // less t_part
+  return cudaFuncSetAttribute(deflate_rows<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *budget);
 }
 
+// R > 0: the row-staged kernel over tiles of R rows; R == 0: the two-pass
+// wide-K form, with G row ranges.
 template <typename T, int V>
-int launch(const void* X, const float* r, float* t, float* p, float* tt, float* partial,
-           int64_t N, int64_t K, int64_t G, int R, cudaStream_t stream) {
+cudaError_t launch(const void* X, const float* r, float* t, float* p, float* tt, float* partial,
+                   int64_t N, int64_t K, int64_t G, int R, cudaStream_t stream) {
   const T* Xt = static_cast<const T*>(X);
   if (R > 0) {
     deflate_rows<T, V><<<static_cast<unsigned>(G), kThreads,
@@ -384,21 +268,20 @@ int launch(const void* X, const float* r, float* t, float* p, float* tt, float* 
     row_dots<T, V><<<static_cast<unsigned>(row_blocks < 4096 ? row_blocks : 4096), kThreads, 0,
                      stream>>>(Xt, r, t, N, K);
     cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
     const int64_t strips = (K / V + kThreads - 1) / kThreads;
     strip_partials<T, V><<<dim3(static_cast<unsigned>(strips), static_cast<unsigned>(G)),
                            kThreads, 0, stream>>>(Xt, t, partial, N, K);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t reduce_blocks = (K + kReduceThreads - 1) / kReduceThreads;
-  reduce_partials<<<static_cast<unsigned>(reduce_blocks), kReduceThreads, 0, stream>>>(
-      partial, p, G, K);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dot_rp<<<1, kDotThreads, 0, stream>>>(r, p, tt, K);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return finish_p_tt(r, p, tt, partial, G, K, stream);
 }
+
+// The shipped configuration of the column-owning design (K2): 16 consumer
+// warps, one block per SM (the sweep's `cols_bf16_w16_s*` rows).
+constexpr int kColsWarps = 16;
+constexpr int kColsBlocks = 1;
 
 }  // namespace
 
@@ -406,34 +289,52 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  vec: 1, or 4 (f32) / 8 (bf16) for
 // 16-byte loads, which the caller may choose only when K % vec == 0 and X
-// and r are 16-byte aligned.
+// and r are 16-byte aligned.  The plans (rows per tile, blocks, the path)
+// are made in Python, ops/deflate.py.
 
-// Plans the pass for this shape on the current device: *G, the rows of the
-// partial buffer, and *R, the rows per staged tile (0: the wide-K path).
-// Returns a cudaError_t (0 = planned).
-int pls_deflate_plan(int dtype, int vec, int64_t N, int64_t K, int64_t* G, int* R) {
-  if (dtype == 0 && vec == 4) return static_cast<int>(plan<float, 4>(N, K, G, R));
-  if (dtype == 0 && vec == 1) return static_cast<int>(plan<float, 1>(N, K, G, R));
-  if (dtype == 1 && vec == 8) return static_cast<int>(plan<__nv_bfloat16, 8>(N, K, G, R));
-  if (dtype == 1 && vec == 1) return static_cast<int>(plan<__nv_bfloat16, 1>(N, K, G, R));
-  return static_cast<int>(cudaErrorInvalidValue);
+// Limits of the current device for the pass: *staged, the dynamic shared
+// memory the row-staged kernel may take; *cols, the bytes the
+// column-owning kernel's ring may take (bf16 with vec 8; else 0); *sms.
+// Raises both kernels' dynamic shared memory limits to the device's
+// maximum.  Returns a cudaError_t (0 = done).
+int pls_deflate_limits(int dtype, int vec, int* staged, int* cols, int* sms) {
+  cudaError_t err = cudaErrorInvalidValue;
+  *cols = 0;
+  if (dtype == 0 && vec == 4) err = rows_limits<float, 4>(staged, sms);
+  if (dtype == 0 && vec == 1) err = rows_limits<float, 1>(staged, sms);
+  if (dtype == 1 && vec == 8) {
+    err = rows_limits<__nv_bfloat16, 8>(staged, sms);
+    if (err == cudaSuccess) err = cols_limits<kColsWarps, kColsBlocks>(cols, sms);
+  }
+  if (dtype == 1 && vec == 1) err = rows_limits<__nv_bfloat16, 1>(staged, sms);
+  return static_cast<int>(err);
 }
 
-// Launches the planned pass on `stream`; returns cudaGetLastError() (0 =
-// launched).
+// Launches the row-staged (R > 0) or wide-K (R == 0) pass on `stream`;
+// returns cudaGetLastError() (0 = launched).
 int pls_deflate_pass(int dtype, int vec, const void* X, const float* r, float* t, float* p,
                      float* tt, float* partial, int64_t N, int64_t K, int64_t G, int R,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && vec == 4) return launch<float, 4>(X, r, t, p, tt, partial, N, K, G, R, s);
-  if (dtype == 0 && vec == 1) return launch<float, 1>(X, r, t, p, tt, partial, N, K, G, R, s);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && vec == 4) err = launch<float, 4>(X, r, t, p, tt, partial, N, K, G, R, s);
+  if (dtype == 0 && vec == 1) err = launch<float, 1>(X, r, t, p, tt, partial, N, K, G, R, s);
   if (dtype == 1 && vec == 8) {
-    return launch<__nv_bfloat16, 8>(X, r, t, p, tt, partial, N, K, G, R, s);
+    err = launch<__nv_bfloat16, 8>(X, r, t, p, tt, partial, N, K, G, R, s);
   }
   if (dtype == 1 && vec == 1) {
-    return launch<__nv_bfloat16, 1>(X, r, t, p, tt, partial, N, K, G, R, s);
+    err = launch<__nv_bfloat16, 1>(X, r, t, p, tt, partial, N, K, G, R, s);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
+}
+
+// Launches the column-owning bf16 pass (G blocks, S row groups, a ring of
+// `stages` slots) on `stream`; returns cudaGetLastError() (0 = launched).
+int pls_deflate_cols_pass(const void* X, const float* r, float* t, float* p, float* tt,
+                          float* partial, int64_t N, int64_t K, int64_t G, int S, int stages,
+                          void* stream) {
+  return static_cast<int>(cols_launch<kColsWarps, kColsBlocks>(
+      X, r, t, p, tt, partial, N, K, G, S, stages, static_cast<cudaStream_t>(stream)));
 }
 
 const char* pls_cuda_error_string(int err) {

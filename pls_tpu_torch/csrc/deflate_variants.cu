@@ -14,7 +14,10 @@
 //   K4 `make_mxu(tn, prec)` (lines 153-206): t and p as matrix-unit
 //      matvecs at a given precision -> kernel `mxu_rows` (mma.sync);
 //   K5 `make_vpu_bf16(tn, vmem_mb)` (lines 208-272): K3's form on bf16 X
-//      widened in registers -> `vpu_rows` on bf16.
+//      widened in registers -> `vpu_rows` on bf16, and the column-owning
+//      design of csrc/deflate_common.cuh (`deflate_cols<W, B>`, K2's design
+//      on the shipped path) with W = 16 or 8 consumer warps, B = 1 or 2
+//      blocks per SM and a ring of 2-8 TMA slots -> the `cols_bf16` rows.
 //
 // What bounds them on the H100: bytes, as for the shipped kernel
 // (csrc/deflate.cu, whose design these share): about 4·N·K flops for
@@ -48,113 +51,34 @@
 //       second product): 1/8 of the instruction's output, the card's
 //       counterpart of the TPU's 1/128 output lanes.
 //
-// Rules shared with csrc/deflate.cu (whose small helpers are repeated here
-// so that each library builds from one file): a persistent grid that walks
-// tiles of R contiguous rows; the ragged last tile is masked, never padded;
+// Rules shared with csrc/deflate.cu (whose helpers, fixed-order reductions
+// and column-owning kernel are in csrc/deflate_common.cuh, included by
+// both): a persistent grid that walks tiles of R contiguous rows; the
+// ragged last tile is masked, never padded;
 // 16-byte cp.async copies when K % vec == 0 and X is 16-byte aligned (r
 // too, for the VPU form), plain loads otherwise; per-block p partials in a
 // (G, K) buffer summed in fixed order by a second kernel, and scalars by a
 // fixed tree, so that results are bit-identical from launch to launch;
-// every launch on the caller's stream; nothing allocated here.  Only six
+// every launch on the caller's stream; nothing allocated here.  Nine
 // kernel templates are instantiated (VPU f32/bf16 and mma f32, each with
-// 16-byte and scalar staging); R, stages, tt_inside and the pass count are
-// runtime parameters.
+// 16-byte and scalar staging; the column-owning design in three
+// configurations); R, S, stages, tt_inside and the pass count are runtime
+// parameters.
 //
 // Interface: plain C, loaded with ctypes (pls_tpu_torch/ops/deflate_variants.py).
 
-#include <cuda_bf16.h>
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "deflate_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kReduceThreads = 256;
-constexpr int kSumThreads = 1024;
 constexpr int kVpuMaxRows = kWarps;  // each staged row has 8/R warps
 constexpr int kMmaRows = 16;         // the m16 of mma.m16n8k16
 
 enum Kind { kVpuF32 = 0, kVpuBf16 = 1, kMxuF32 = 2 };
 
-// ---------- helpers (as in csrc/deflate.cu) ----------
-
-template <typename T, int V>
-struct Chunk {
-  using Raw = uint4;
-};
-template <typename T>
-struct Chunk<T, 1> {
-  using Raw = T;
-};
-
-template <typename T, int V>
-__device__ __forceinline__ void widen(const typename Chunk<T, V>::Raw& raw, float (&out)[V]) {
-  if constexpr (V == 1) {
-    if constexpr (sizeof(T) == 4) {
-      out[0] = raw;
-    } else {
-      out[0] = __bfloat162float(raw);
-    }
-  } else if constexpr (sizeof(T) == 4) {
-    static_assert(V == 4, "f32 vector loads are 4 wide");
-    out[0] = __uint_as_float(raw.x);
-    out[1] = __uint_as_float(raw.y);
-    out[2] = __uint_as_float(raw.z);
-    out[3] = __uint_as_float(raw.w);
-  } else {
-    static_assert(V == 8, "bf16 vector loads are 8 wide");
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      out[2 * k] = f.x;
-      out[2 * k + 1] = f.y;
-    }
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void load_r(const float* __restrict__ p, float (&out)[V]) {
-  if constexpr (V == 1) {
-    out[0] = __ldg(p);
-  } else {
-#pragma unroll
-    for (int k = 0; k < V / 4; ++k) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(p) + k);
-      out[4 * k] = v.x;
-      out[4 * k + 1] = v.y;
-      out[4 * k + 2] = v.z;
-      out[4 * k + 3] = v.w;
-    }
-  }
-}
-
-__host__ __device__ constexpr int64_t align16(int64_t bytes) { return (bytes + 15) / 16 * 16; }
-
 // Dynamic shared memory: p accumulator, then `stages` buffers of R rows.
 __host__ __device__ constexpr int64_t smem_bytes(int64_t K, int R, int stages, int elem) {
   return align16(K * 4) + static_cast<int64_t>(stages) * R * K * elem;
-}
-
-// Starts the copy of rows [row0, row0 + rows) of X into `buf`; commits one
-// pipeline group (empty on the scalar path, whose stores are plain).
-template <typename T, int V>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ X, T* buf, int64_t row0,
-                                           int rows, int64_t K) {
-  using Raw = typename Chunk<T, V>::Raw;
-  const Raw* src = reinterpret_cast<const Raw*>(X + row0 * K);
-  Raw* dst = reinterpret_cast<Raw*>(buf);
-  const int64_t total = rows * (K / V);
-  for (int64_t c = threadIdx.x; c < total; c += kThreads) {
-    if constexpr (V > 1) {
-      __pipeline_memcpy_async(dst + c, src + c, sizeof(Raw));
-    } else {
-      dst[c] = src[c];
-    }
-  }
-  __pipeline_commit();
 }
 
 // The tile walk shared by both forms: block b reduces tiles b, b + G, ...
@@ -456,35 +380,6 @@ mxu_rows(const float* __restrict__ X, const float* __restrict__ r, float* __rest
   for (int64_t c = threadIdx.x; c < K; c += kThreads) out[c] = p_acc[c];
 }
 
-// ---------- fixed-order reductions ----------
-
-// p[j] = Σ_g partial[g, j], g in increasing order.
-__global__ void __launch_bounds__(kReduceThreads)
-reduce_partials(const float* __restrict__ partial, float* __restrict__ p, int64_t G,
-                int64_t K) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kReduceThreads + threadIdx.x;
-  if (j >= K) return;
-  float s = 0.f;
-  for (int64_t g = 0; g < G; ++g) s += partial[g * K + j];
-  p[j] = s;
-}
-
-// out = Σ a[j]·b[j] (Σ a[j] when b is null) in one block, by a fixed tree.
-__global__ void __launch_bounds__(kSumThreads)
-tree_sum(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
-         int64_t n) {
-  __shared__ float red[kSumThreads];
-  float s = 0.f;
-  for (int64_t j = threadIdx.x; j < n; j += kSumThreads) s = b ? fmaf(a[j], b[j], s) : s + a[j];
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int stride = kSumThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[0] = red[0];
-}
-
 // ---------- planning and launch ----------
 
 template <typename Kern>
@@ -627,6 +522,37 @@ int kv_launch(int kind, int vec, const void* X, const float* r, float* t, float*
     tree_sum<<<1, kSumThreads, 0, s>>>(r, p, tt, K);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The column-owning design (`cols_bf16`) in the configurations the sweep
+// compares: (consumer warps, blocks per SM).
+#define KV_COLS_CONFIGS(F) F(16, 1) F(8, 2)
+
+// *budget, the bytes one configuration's ring may take, and *sms; raises its
+// dynamic shared memory limit.  The plan (S, stages, G) is made in Python
+// (ops/deflate.py::cols_plan).  Returns a cudaError_t.
+int kv_cols_limits(int warps, int blocks, int* budget, int* sms) {
+#define KV_COLS_LIMITS(W, B) \
+  if (warps == W && blocks == B) return static_cast<int>(cols_limits<W, B>(budget, sms));
+  KV_COLS_CONFIGS(KV_COLS_LIMITS)
+#undef KV_COLS_LIMITS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Launches the planned column-owning pass, p's fixed-order sum and tt = r·p
+// on `stream`.  Returns cudaGetLastError() (0 = launched).
+int kv_cols_launch(int warps, int blocks, const void* X, const float* r, float* t, float* p,
+                   float* tt, float* partial, int64_t N, int64_t K, int64_t G, int S,
+                   int stages, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define KV_COLS_LAUNCH(W, B)                                                              \
+  if (warps == W && blocks == B) {                                                        \
+    return static_cast<int>(                                                              \
+        cols_launch<W, B>(X, r, t, p, tt, partial, N, K, G, S, stages, s));               \
+  }
+  KV_COLS_CONFIGS(KV_COLS_LAUNCH)
+#undef KV_COLS_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* kv_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

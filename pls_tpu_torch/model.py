@@ -25,6 +25,7 @@ import sys
 import numpy as np
 import torch
 
+from pls_tpu_torch.config import resolve_device
 from pls_tpu_torch.convert import fit_from_numpy, fit_to_numpy
 from pls_tpu_torch.cv.kfold import cv_kfold, cv_kfold_downdate
 from pls_tpu_torch.cv.loo import cv_loo, cv_loo_downdate
@@ -39,6 +40,9 @@ from pls_tpu_torch.utils.reporting import format_eigen, format_eigen_complex
 
 
 class PLSModel:
+    """Fits on `device`; None is the device of a tensor X, or the card for
+    other data (RuntimeError without one: pass device="cpu")."""
+
     def __init__(
         self,
         X,
@@ -53,6 +57,7 @@ class PLSModel:
         x_storage: str | None = None,
         _fit_state: PLSFit | None = None,
     ):
+        device = resolve_device(device, X)
         X = torch.as_tensor(X, dtype=dtype, device=device)
         Y = torch.as_tensor(Y, dtype=dtype, device=device)
         if Y.ndim == 1:
@@ -309,7 +314,9 @@ class PLSModel:
 
     @classmethod
     def load(cls, path: str, *, device: torch.device | str | None = None) -> "PLSModel":
-        """Read an .npz written by either package's `save`."""
+        """Read an .npz written by either package's `save`, onto `device`
+        (None: the card, as every entry point of the port)."""
+        device = resolve_device(device)
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["meta"]))
             method = METHOD(meta["method"])

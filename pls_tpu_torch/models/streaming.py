@@ -16,6 +16,9 @@ is `collect_moments` + `fit_streaming(zscore=True)`.
 `FoldStatsAccumulator` keeps the statistics per CV fold in the same one
 pass (cv/kfold.cv_kfold_onepass).
 
+Every entry point here takes `device`; None is the card (RuntimeError
+without one: pass device="cpu"), whatever device the chunks are on.
+
 `precision` is the matmul setting of the Gram updates (`kernel_pls._prec_ctx`:
 "highest" = float32 without TF32, None = PyTorch's current settings).
 `x_storage="bf16"` rounds each chunk of X (and Y in XᵀY) to bfloat16 and
@@ -32,6 +35,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from pls_tpu_torch.config import resolve_device
 from pls_tpu_torch.models.kernel_pls import _NOT_PORTED_PRECISION, _prec_ctx, fit_from_stats
 from pls_tpu_torch.types import PLSFit
 
@@ -82,6 +86,7 @@ class StatsAccumulator:
         _check_storage(self.x_storage)
         if self.compensated:
             raise NotImplementedError(_NOT_PORTED_PRECISION.format("compensated"))
+        self.device = resolve_device(self.device)
         z = dict(dtype=self.dtype, device=self.device)
         self.XX = torch.zeros((self.K, self.K), **z)
         self.XY = torch.zeros((self.K, self.M), **z)
@@ -231,6 +236,7 @@ class FoldStatsAccumulator:
         _check_storage(self.x_storage)
         if self.k < 2:
             raise ValueError(f"k={self.k} must be >= 2")
+        self.device = resolve_device(self.device)
         z = dict(dtype=self.dtype, device=self.device)
         self.XXf = torch.zeros((self.k, self.K, self.K), **z)
         self.XYf = torch.zeros((self.k, self.K, self.M), **z)
@@ -328,6 +334,7 @@ def collect_moments(chunks, K: int, M: int, dtype=torch.float32, device=None):
     """Pass 1 of exact streaming z-scoring: (mx, sdx, my, sdy, n) over an
     iterable of (X_chunk, Y_chunk), unbiased σ with the zero guard;
     counterpart of `pls_tpu/models/streaming.py:551-574`."""
+    device = resolve_device(device)
     z = dict(dtype=dtype, device=device)
     mx, m2x = torch.zeros(K, **z), torch.zeros(K, **z)
     my, m2y = torch.zeros(M, **z), torch.zeros(M, **z)
@@ -366,6 +373,7 @@ def fit_streaming_csv(
 ) -> PLSFit:
     """Out-of-core fit from CSV files: pass 1 the column moments, pass 2
     the z-scored XᵀX/XᵀY (counterpart of `streaming.py:597-618`)."""
+    device = resolve_device(device)
     probe = next(iter(csv_chunks(x_path, y_path, chunk_rows, separator)))
     K, M = probe[0].shape[1], probe[1].shape[1]
     moments = None

@@ -8,10 +8,15 @@ that chose the JAX package's shipped kernel:
 - K4 `make_mxu(tn, prec)` (lines 153-206): t and p as matrix-unit matvecs
   at DEFAULT (1 bf16 pass), HIGH (3) or HIGHEST (6), tt = t·t outside;
 - K5 `make_vpu_bf16(tn, vmem_mb)` (lines 208-272): K3's form on bfloat16
-  X widened in registers, tt = r·p.
+  X widened in registers, tt = r·p; beside it `make_cols_bf16(warps,
+  stages, blocks)`, the same function in the column-owning design that is
+  K2's on the shipped path (`csrc/deflate_common.cuh`): 16 or 8 consumer
+  warps own fixed column chunks, a producer warp keeps a ring of 2-8 TMA
+  slots, one block per SM (two at 8 warps).
 
-Each factory keeps the JAX name and returns a `Variant`, a callable
-`fn(X, r) -> (t, tt, p)` in float32.  The kernels are in
+Each factory keeps the JAX name and returns a `Variant` (a `ColsVariant`
+for the column-owning design), a callable `fn(X, r) -> (t, tt, p)` in
+float32.  The kernels are in
 `csrc/deflate_variants.cu` (CUDA C++ for sm_90a; K4 on bf16 `mma.sync`
 tensor-core instructions); its header says how the TPU's knobs map onto
 the card's: `tn` becomes R, the rows per staged shared-memory tile (≤ 8
@@ -20,8 +25,8 @@ becomes `smem_kb`, the shared memory each block reserves (and so the
 blocks per SM); Pallas's double buffering becomes `stages` (1 or 2).
 
 Beside each kernel, its plain PyTorch version: `vpu_f32_plain`,
-`vpu_bf16_plain` and `mxu_plain`, the two-product form on the operands the
-kernel sees (bf16-rounded or split for the mma form, t rounded to bf16 at
+`vpu_bf16_plain` (also the cols rows') and `mxu_plain`, the two-product
+form on the operands the kernel sees (bf16-rounded or split for the mma form, t rounded to bf16 at
 DEFAULT as the TPU's matrix unit does).  A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises, with no fallback.
 
@@ -33,10 +38,14 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import ClassVar
 
 import torch
 
-# the kernel file's kinds, and each one's X dtype and 16-byte vector width
+from pls_tpu_torch.ops.deflate import COLS_MAX_STAGES, Plan, cols_max_k, cols_plan
+
+# the kernel file's row-staged kinds, and each one's X dtype and 16-byte
+# vector width (cols_bf16, `ColsVariant`, has its own entry points)
 _KINDS = {"vpu_f32": (0, torch.float32, 4), "vpu_bf16": (1, torch.bfloat16, 8),
           "mxu_f32": (2, torch.float32, 4)}
 PRECISIONS = {"DEFAULT": 1, "HIGH": 3, "HIGHEST": 6}  # bf16 mma passes
@@ -45,7 +54,10 @@ _SPLITS = {1: 1, 3: 2, 6: 3}  # bf16 parts each operand is split into
 # passes take the last P, in the kernel's order
 _TERMS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 VPU_MAX_ROWS, MMA_MAX_ROWS = 8, 16
-launches = {"vpu_f32": 0, "mxu_f32": 0, "vpu_bf16": 0}
+# the column-owning kernel's instantiations (csrc/deflate_variants.cu):
+# (consumer warps, blocks per SM)
+COLS_CONFIGS = ((16, 1), (8, 2))
+launches = {"vpu_f32": 0, "mxu_f32": 0, "vpu_bf16": 0, "cols_bf16": 0}
 
 
 # ---------- plain versions ----------
@@ -127,6 +139,13 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.kv_launch.restype = ctypes.c_int
+    lib.kv_cols_limits.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.kv_cols_limits.restype = ctypes.c_int
+    lib.kv_cols_launch.argtypes = [
+        *[ctypes.c_int] * 2, *[ctypes.c_void_p] * 6, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.kv_cols_launch.restype = ctypes.c_int
     lib.kv_error_string.argtypes = [ctypes.c_int]
     lib.kv_error_string.restype = ctypes.c_char_p
     return lib
@@ -153,14 +172,51 @@ def _plan(device_index: int, code: int, vec: int, N: int, K: int, rows: int, sta
     return G.value, R.value, per_sm.value
 
 
+@functools.lru_cache(maxsize=64)
+def _cols_plan(device_index: int, N: int, K: int, warps: int, blocks: int,
+               stages: int) -> Plan | None:
+    """The plan of one configuration of the column-owning kernel for X
+    (N, K) on the device (`ops.deflate.cols_plan` with its ring budget and
+    SM count), None where it does not take K."""
+    budget, sms = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        _check(_library().kv_cols_limits(warps, blocks, ctypes.byref(budget),
+                                         ctypes.byref(sms)),
+               "cols_bf16 limits")
+    return cols_plan(N, K, warps, blocks, budget.value, sms.value, stages, stages)
+
+
+def _check_operands(name: str, dtype: torch.dtype, X: torch.Tensor, r: torch.Tensor) -> None:
+    if not X.is_cuda or X.device != r.device:
+        raise ValueError(f"X ({X.device}) and r ({r.device}) must be on one CUDA device")
+    if X.dtype != dtype:
+        raise ValueError(f"{name} takes {dtype} X, got {X.dtype}")
+    if X.ndim != 2 or not X.is_contiguous():
+        raise ValueError(f"X must be a contiguous 2-D tensor, got shape {tuple(X.shape)}")
+    N, K = X.shape
+    if N == 0 or K == 0:
+        raise ValueError(f"X is empty: shape {(N, K)}")
+    if r.dtype != torch.float32 or r.shape != (K,) or not r.is_contiguous():
+        raise ValueError(f"r must be a contiguous float32 ({K},) tensor")
+
+
+def _outputs(X: torch.Tensor, G: int):
+    """t (N,), tt (), p (K,) and the (G, K) partial buffer, float32 on X's device."""
+    N, K = X.shape
+    return (torch.empty(N, dtype=torch.float32, device=X.device),
+            torch.empty((), dtype=torch.float32, device=X.device),
+            torch.empty(K, dtype=torch.float32, device=X.device),
+            torch.empty((G, K), dtype=torch.float32, device=X.device))
+
+
 @dataclass(frozen=True)
 class Variant:
-    """One kernel variant: `fn(X, r) -> (t, tt, p)`, float32.
+    """One row-staged kernel variant: `fn(X, r) -> (t, tt, p)`, float32.
 
     kind: "vpu_f32" (K3), "mxu_f32" (K4) or "vpu_bf16" (K5); tn: the rows
-    per staged tile asked for; stages: 1 or 2 staging buffers; smem_kb: the
-    shared memory a block reserves (None: the device's maximum, one block
-    per SM); tt_inside (K3): the kernel sums tᵢ² itself; prec (K4)."""
+    per staged tile asked for; stages: 1 or 2 staging buffers; smem_kb:
+    the shared memory a block reserves (None: the device's maximum, one
+    block per SM); tt_inside (K3): the kernel sums tᵢ² itself; prec (K4)."""
 
     kind: str
     tn: int
@@ -212,6 +268,10 @@ class Variant:
             return 1  # scalar loads: rows of X, or r, are not all 16-byte aligned
         return vec
 
+    def takes(self, X: torch.Tensor) -> bool:
+        """Whether the kernel runs on X (every shape and alignment)."""
+        return True
+
     def plan(self, X: torch.Tensor, r: torch.Tensor) -> tuple[int, int, int]:
         """(G, R, blocks per SM) of this variant for X on its device."""
         return self._plan_for(X, self._vec(X, r))
@@ -228,26 +288,13 @@ class Variant:
     def cuda(self, X: torch.Tensor, r: torch.Tensor):
         """Launch the kernel on the current stream.  Raises on a tensor the
         kernel does not take, and if the launch fails."""
-        if not X.is_cuda or X.device != r.device:
-            raise ValueError(f"X ({X.device}) and r ({r.device}) must be on one CUDA device")
-        if X.dtype != self.dtype:
-            raise ValueError(f"{self.name} takes {self.dtype} X, got {X.dtype}")
-        if X.ndim != 2 or not X.is_contiguous():
-            raise ValueError(f"X must be a contiguous 2-D tensor, got shape {tuple(X.shape)}")
+        _check_operands(self.name, self.dtype, X, r)
         N, K = X.shape
-        if N == 0 or K == 0:
-            raise ValueError(f"X is empty: shape {(N, K)}")
-        if r.dtype != torch.float32 or r.shape != (K,) or not r.is_contiguous():
-            raise ValueError(f"r must be a contiguous float32 ({K},) tensor")
         vec = self._vec(X, r)
         G, R, _ = self._plan_for(X, vec)
-        dev = X.device
-        t = torch.empty(N, dtype=torch.float32, device=dev)
-        p = torch.empty(K, dtype=torch.float32, device=dev)
-        tt = torch.empty((), dtype=torch.float32, device=dev)
-        partial = torch.empty((G, K), dtype=torch.float32, device=dev)
-        tt_part = torch.empty(G, dtype=torch.float32, device=dev) if self.tt_inside else None
-        with torch.cuda.device(dev):
+        t, tt, p, partial = _outputs(X, G)
+        tt_part = torch.empty(G, dtype=torch.float32, device=X.device) if self.tt_inside else None
+        with torch.cuda.device(X.device):
             err = _library().kv_launch(
                 _KINDS[self.kind][0], vec, X.data_ptr(), r.data_ptr(),
                 t.data_ptr(), p.data_ptr(), tt.data_ptr(), partial.data_ptr(),
@@ -281,3 +328,82 @@ def make_mxu(tn: int, prec: str, stages: int = 2) -> Variant:
 def make_vpu_bf16(tn: int, smem_kb: int | None = None) -> Variant:
     """K5: the VPU form on bfloat16 X, widened in registers, two stages."""
     return Variant("vpu_bf16", tn, 2, smem_kb)
+
+
+@dataclass(frozen=True)
+class ColsVariant:
+    """K5 in the column-owning design (K2's on the shipped path), with
+    `Variant`'s interface: `warps` consumer warps and `blocks` blocks per
+    SM (one of COLS_CONFIGS), a ring of `stages` TMA slots (2-8); the plan
+    picks the rows per tile from K."""
+
+    warps: int
+    stages: int
+    blocks: int = 1
+    kind: ClassVar[str] = "cols_bf16"
+    dtype: ClassVar[torch.dtype] = torch.bfloat16
+
+    def __post_init__(self):
+        if (self.warps, self.blocks) not in COLS_CONFIGS:
+            raise ValueError(f"cols_bf16: (warps, blocks) must be one of {COLS_CONFIGS}, "
+                             f"got {(self.warps, self.blocks)}")
+        if not 2 <= self.stages <= COLS_MAX_STAGES:
+            raise ValueError(f"cols_bf16: stages must be in 2..{COLS_MAX_STAGES}, "
+                             f"got {self.stages}")
+
+    @property
+    def name(self) -> str:
+        blocks = f"x{self.blocks}" if self.blocks > 1 else ""
+        return f"cols_bf16_w{self.warps}{blocks}_s{self.stages}"
+
+    def plain(self, X: torch.Tensor, r: torch.Tensor):
+        return vpu_bf16_plain(X, r)
+
+    def takes(self, X: torch.Tensor) -> bool:
+        """Whether the kernel runs on X: K % 8 == 0, X 16-byte aligned, K
+        within the columns its threads hold."""
+        K = X.shape[1]
+        return K % 8 == 0 and K <= cols_max_k(self.warps) and X.data_ptr() % 16 == 0
+
+    def _plan(self, X: torch.Tensor) -> Plan:
+        N, K = X.shape
+        plan = _cols_plan(X.device.index, N, K, self.warps, self.blocks, self.stages)
+        if plan is None or X.data_ptr() % 16:
+            raise ValueError(f"{self.name}: takes K % 8 == 0 with at most "
+                             f"{cols_max_k(self.warps)} columns, X 16-byte aligned, and "
+                             f"{self.stages} ring slots of its tile; got K={K}")
+        return plan
+
+    def plan(self, X: torch.Tensor, r: torch.Tensor) -> tuple[int, int, int]:
+        """(G, R, blocks per SM) of this variant for X on its device."""
+        plan = self._plan(X)
+        return plan.G, plan.R, self.blocks
+
+    def cuda(self, X: torch.Tensor, r: torch.Tensor):
+        """Launch the kernel on the current stream.  Raises on a tensor the
+        kernel does not take, and if the launch fails."""
+        _check_operands(self.name, self.dtype, X, r)
+        N, K = X.shape
+        plan = self._plan(X)
+        t, tt, p, partial = _outputs(X, plan.G)
+        with torch.cuda.device(X.device):
+            err = _library().kv_cols_launch(
+                self.warps, self.blocks, X.data_ptr(), r.data_ptr(), t.data_ptr(), p.data_ptr(),
+                tt.data_ptr(), partial.data_ptr(), N, K, plan.G, plan.S, plan.stages,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        _check(err, f"{self.name} launch")
+        launches[self.kind] += 1
+        return t, tt, p
+
+    def __call__(self, X: torch.Tensor, r: torch.Tensor):
+        """The plain version for a CPU tensor, the kernel for a CUDA one."""
+        if X.device.type == "cpu":
+            return self.plain(X, r)
+        return self.cuda(X, r)
+
+
+def make_cols_bf16(warps: int, stages: int, blocks: int = 1) -> ColsVariant:
+    """K5 in the column-owning design: `warps` consumer warps and `blocks`
+    blocks per SM (one of COLS_CONFIGS), a ring of `stages` TMA slots (2-8)."""
+    return ColsVariant(warps, stages, blocks)

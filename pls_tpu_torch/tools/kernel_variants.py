@@ -13,10 +13,13 @@ X, as the JAX tool does.  One line per row:
 - `copy`: the card's device-to-device copy of X, the bandwidth ceiling
   (its GB/s counts the read and the write);
 - `shipped_f32` / `shipped_bf16`: the shipped kernel (K1 / K2,
-  `ops.deflate.deflate_pass_cuda`);
+  `ops.deflate.deflate_pass_cuda`; on bf16 the column-owning design where
+  it takes the shape), and with KV_BF16 `shipped_bf16_staged`, K2's
+  earlier row-staged design (`ops.deflate.staged_plan_for`) on the same X;
 - `plain_f32` / `plain_bf16`: the two-product form (`deflate_pass_plain`);
 - the variants (`default_variants`): K3 `vpu_1k_*` and K4 `mxu_*` on
-  float32 X, or K5 `vpu_bf16_*` with KV_BF16.
+  float32 X, or K5 with KV_BF16: the row-staged `vpu_bf16_*` and the
+  column-owning `cols_bf16_w{warps}[x{blocks}]_s{stages}`.
 
 Each row gives ms per component and one-pass GB/s (N·K·itemsize over the
 time), err_p = max|p − p₆₄| / max|p₆₄| and err_tt = |tt − tt₆₄| / tt₆₄, the
@@ -51,18 +54,25 @@ STAGES = (1, 2)
 SMEM_KB = (None, 110)  # the block's reservation: 1 block per SM, or 2
 MXU_TILES = ((16, 1), (8, 2))  # (rows, stages): one 16-row buffer, or two of 8
 BF16_ROWS = (2, 4, 8)
+COLS_STAGES = (2, 3, 4)  # ring slots of each cols_bf16 configuration
 WARMUP_CHAIN, REPS = 5, 3
 
 
-def default_variants(bf16: bool) -> list[dv.Variant]:
+def default_variants(bf16: bool) -> list[dv.Variant | dv.ColsVariant]:
     """The sweep's variants: K5 with `bf16`, else K3 and K4."""
     if bf16:
-        return [dv.make_vpu_bf16(tn, kb) for tn in BF16_ROWS for kb in SMEM_KB]
+        return ([dv.make_vpu_bf16(tn, kb) for tn in BF16_ROWS for kb in SMEM_KB]
+                + [dv.make_cols_bf16(w, st, b) for w, b in dv.COLS_CONFIGS for st in COLS_STAGES])
     out = [dv.make_vpu_1k(tn, False, kb, st) for tn in F32_ROWS for st in STAGES
            for kb in SMEM_KB]
     out.append(dv.make_vpu_1k(4, True))
     out += [dv.make_mxu(tn, prec, stages=st) for prec in dv.PRECISIONS for tn, st in MXU_TILES]
     return out
+
+
+def _shipped_staged(X: torch.Tensor, r: torch.Tensor):
+    """K2's earlier row-staged design, launched on the same X."""
+    return deflate._launch(X, r, deflate.staged_plan_for)
 
 
 def _event_ms(fn) -> float:
@@ -127,8 +137,10 @@ def sweep(n: int, k: int, iters: int, bf16: bool, seed: int = 0) -> list[dict]:
     rows = [{"name": "copy", "ms": copy_ms, "gbs": 2 * nbytes / copy_ms / 1e6, "route": "torch"}]
     print(f"{'copy':24s} {copy_ms:8.4f} ms      {rows[0]['gbs']:8.1f} GB/s (read+write)  torch",
           flush=True)
-    steps = [(f"shipped_{dname}", deflate.deflate_pass_cuda, "cuda", None),
-             (f"plain_{dname}", deflate.deflate_pass_plain, "torch", None)]
+    steps = [(f"shipped_{dname}", deflate.deflate_pass_cuda, "cuda", None)]
+    if bf16:
+        steps.append(("shipped_bf16_staged", _shipped_staged, "cuda", None))
+    steps.append((f"plain_{dname}", deflate.deflate_pass_plain, "torch", None))
     steps += [(v.name, v.cuda, "cuda", v) for v in default_variants(bf16)]
     for name, step, route, variant in steps:
         try:

@@ -28,6 +28,8 @@ import threading
 import numpy as np
 import torch
 
+from pls_tpu_torch.config import resolve_device
+
 # Rotating-pool size for stream_npy(reuse_buffers=True).  The reader leads
 # the newest yielded chunk by at most 3 (2 queued + 1 being read), so a
 # 6-slot pool keeps a yielded chunk intact until two more have been
@@ -280,12 +282,6 @@ def _pread_into(fd: int, mv: memoryview, offset: int) -> None:
         pos += got
 
 
-def _device(device) -> torch.device:
-    from pls_tpu_torch.config import default_device
-
-    return default_device() if device is None else torch.device(device)
-
-
 def device_stream(chunks, *, device=None, cast: torch.dtype | None = None):
     """Iterate chunks on `device`, with one host→device copy in flight
     ahead of the consumer (counterpart of `pls_tpu/utils/binio.py:338-382`).
@@ -298,7 +294,7 @@ def device_stream(chunks, *, device=None, cast: torch.dtype | None = None):
     `cast` converts on the host first (into three rotating pinned
     buffers), e.g. torch.bfloat16 to halve the copy.  On the CPU each
     chunk is copied, since it would otherwise alias a reused pool slot."""
-    device = _device(device)
+    device = resolve_device(device)
     if device.type != "cuda":
         for c in chunks:
             yield c.to(cast) if cast is not None and c.dtype != cast else c.clone()
@@ -412,7 +408,7 @@ def stats_from_npy(
     device=None,
 ):
     """One streaming pass over .npy files → a StatsAccumulator holding XᵀX /
-    XᵀY on `device` (default: CUDA when present, else the CPU);
+    XᵀY on `device` (default: CUDA device 0; the CPU only when passed);
     counterpart of `pls_tpu/utils/binio.py:446-508`.  chunk_rows=None takes
     `auto_chunk_rows`; `stats_precision` is the accumulation's matmul
     setting ("highest": float32 without TF32; None: PyTorch's current
@@ -422,7 +418,7 @@ def stats_from_npy(
     (N, K), M, chunk_rows, cast, x_storage = _resolve_ingest(
         x_path, y_path, chunk_rows, x_storage, compensated
     )
-    device = _device(device)
+    device = resolve_device(device)
     acc = StatsAccumulator(K, M, dtype or torch.float32, compensated=compensated,
                            x_storage=x_storage, precision=stats_precision, device=device)
     for Xc, Yc in _ingest(x_path, y_path, chunk_rows, cast, device, cast):
@@ -453,7 +449,7 @@ def fold_stats_from_npy(
     assignments = _check_assignments(assignments, k)
     if assignments.shape != (N,):
         raise ValueError(f"assignments shape {assignments.shape} != ({N},)")
-    device = _device(device)
+    device = resolve_device(device)
     acc = FoldStatsAccumulator(K, M, k, dtype or torch.float32, x_storage=x_storage,
                                precision=stats_precision, device=device)
     start = 0
@@ -506,7 +502,7 @@ def cv_kfold_npy(
         assignments = kfold_assignments(N, k, key)
     assignments = (assignments.cpu().numpy() if isinstance(assignments, torch.Tensor)
                    else np.asarray(assignments)).astype(np.int64)
-    device = _device(device)
+    device = resolve_device(device)
     facc = fold_stats_from_npy(
         x_path, y_path, assignments, k, chunk_rows=chunk_rows, x_storage=x_storage,
         dtype=dtype, stats_precision=stats_precision, device=device,

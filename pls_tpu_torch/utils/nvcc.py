@@ -3,8 +3,9 @@
 A source under `pls_tpu_torch/csrc/` is compiled for Hopper (`sm_90a`)
 into a shared library with a plain C interface, at first use, in
 `build/pls_tpu_torch/` beside the package.  The library's name carries a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  nvcc's output (with `-Xptxas -v`: each
+hash of the source, of every header of `csrc/` it includes with
+`#include "…"` (and theirs), and of the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is.  nvcc's output (with `-Xptxas -v`: each
 kernel's registers, shared memory and spills) is kept beside the library
 as `<name>.log`.  Nothing here runs when the module is imported.
 """
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,11 +44,32 @@ def nvcc_path() -> str:
     return found
 
 
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: str) -> list[Path]:
+    """csrc/<source>, then the headers it includes with quotes, and theirs,
+    that exist beside it, in the order first seen."""
+    files: list[Path] = []
+    todo = [PACKAGE_DIR / "csrc" / source]
+    while todo:
+        f = todo.pop(0)
+        if f in files:
+            continue
+        files.append(f)
+        todo += [f.parent / name for name in _QUOTED_INCLUDE.findall(f.read_text())
+                 if (f.parent / name).exists()]
+    return files
+
+
 def library_path(source: str) -> Path:
-    """Where the library built from csrc/<source> lives for this source text."""
-    src = PACKAGE_DIR / "csrc" / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+    """Where the library built from csrc/<source> lives for this text of the
+    source and its headers."""
+    digest = hashlib.sha256()
+    for f in source_files(source):
+        digest.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
 @functools.cache

@@ -1,6 +1,7 @@
 """The port's CLI (`python -m pls_tpu_torch`) against the reference's goldens.
 
-Runs the CLI in a subprocess on the CPU (float64, the CPU default) on the
+Runs the CLI in a subprocess with `--device cpu` (float64, the CPU
+default; without it the CLI runs on the card or exits 1) on the
 toy and nir data vendored in pls_tpu/data/, and checks exit codes 100 and
 1, an empty stdout, and the state, explained-variance and validation
 tables against the captured reference stderr (tests/golden/*_cli_stderr.txt)
@@ -36,7 +37,7 @@ def run_cli(*args, timeout=600):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     return subprocess.run(
-        [sys.executable, "-m", "pls_tpu_torch", *map(str, args)],
+        [sys.executable, "-m", "pls_tpu_torch", *map(str, args), "--device", "cpu"],
         capture_output=True, text=True, cwd=REPO, env=env, timeout=timeout,
     )
 
@@ -186,7 +187,7 @@ def jax_stderr():
 def test_cv_stderr_bytes_match_jax(data, case, jax_stderr):
     from pls_tpu_torch.cli import main
 
-    mine = _stderr_of(main, _parity_argv(data, case))
+    mine = _stderr_of(main, _parity_argv(data, case) + ["--device", "cpu"])
     assert mine == jax_stderr[(data, case)]
     if case != "lso_jax":
         k = 5 if case == "kfold5" else 10

@@ -36,7 +36,7 @@ def test_jax_save_port_load(tmp_path, data, method, include_data):
     path = str(tmp_path / "m.npz")
     ref = pt.PLSModel(jnp.asarray(X), jnp.asarray(Y), pt.METHOD(method), 2)
     ref.save(path, include_data=include_data)
-    mine = tt.PLSModel.load(path)
+    mine = tt.PLSModel.load(path, device="cpu")
     assert mine.method.value == method and mine.A == 2
     np.testing.assert_allclose(
         mine.fitted_values(X_new).numpy(), np.asarray(ref.fitted_values(jnp.asarray(X_new))),
@@ -74,7 +74,7 @@ def test_fit_numpy_roundtrip(data):
     X, Y, _ = data
     f_jax = pt.fit(jnp.asarray(X), jnp.asarray(Y), 2)
     arrays = {k: np.asarray(getattr(f_jax, k)) for k in "WPQRT"}
-    f = fit_from_numpy(arrays, "kernel1")
+    f = fit_from_numpy(arrays, "kernel1", device="cpu")
     assert f.method == tt.KERNEL_TYPE1 and f.A == 2 and f.K == X.shape[1] and f.M == 2
     back = fit_to_numpy(f)
     for k in "WPQRT":

@@ -5,7 +5,9 @@ The JAX sweep's kernels (tools/kernel_variants.py) are closures inside its
 port's plain versions are held against what the JAX package computes the
 same way, with nothing in it changed:
 
-- K3 (`make_vpu_1k`, both `tt_inside`) and K5 (`make_vpu_bf16`) against
+- K3 (`make_vpu_1k`, both `tt_inside`) and K5 (`make_vpu_bf16`, and
+  `make_cols_bf16`, the column-owning design, whose plain version is the
+  same) against
   `pls_tpu.ops.deflate._deflate_pass_pallas(..., interpret=True)`, whose
   bodies `_kernel_f32` / `_kernel_bf16` are the sweep's VPU kernel bodies;
   for `tt_inside` the reference tt is t·t of the JAX t.  Tolerance 1e-5
@@ -175,7 +177,31 @@ def test_default_variants_cover_the_design_points():
     assert {v.smem_kb for v in vpu} == {None, 110}  # 1 or 2 blocks per SM
     assert any(v.tt_inside for v in vpu)
     assert {v.prec for v in f32 if v.kind == "mxu_f32"} == set(dv.PRECISIONS)
-    assert all(v.kind == "vpu_bf16" for v in kv.default_variants(True))
+    bf16 = kv.default_variants(True)
+    # the row-staged K5 rows stay beside the column-owning ones, in one sweep
+    assert {v.kind for v in bf16} == {"vpu_bf16", "cols_bf16"}
+    assert all(v.dtype == torch.bfloat16 for v in bf16)
+
+
+def test_cols_variants_names_and_parameters():
+    cols = [v for v in kv.default_variants(True) if v.kind == "cols_bf16"]
+    assert [v.name for v in cols] == [f"cols_bf16_{c}_s{s}" for c in ("w16", "w8x2")
+                                      for s in (2, 3, 4)]
+    assert {(v.warps, v.blocks, v.stages) for v in cols} == {
+        (w, b, s) for w, b in dv.COLS_CONFIGS for s in kv.COLS_STAGES}
+    # a class of its own: the row-staged knobs (tn, smem_kb, tt_inside, prec) do not apply
+    assert all(isinstance(v, dv.ColsVariant) and v.dtype == torch.bfloat16 for v in cols)
+    assert not any(hasattr(v, "tn") or hasattr(v, "prec") for v in cols)
+    assert dv.make_cols_bf16(8, 3, 2) == dv.ColsVariant(8, 3, 2)
+
+
+@pytest.mark.parametrize("N,K,takes", [(37, 24, True), (300, 401, False), (64, 5004, False),
+                                       (64, 10_240, True), (8, 10_248, False)])
+def test_cols_variant_takes_k_multiple_of_8_within_its_registers(N, K, takes):
+    X = torch.zeros((N, K), dtype=torch.bfloat16)
+    assert dv.make_cols_bf16(16, 3).takes(X) is takes
+    assert dv.make_cols_bf16(8, 3, 2).takes(X) is (takes and K <= 5120)
+    assert dv.make_vpu_bf16(8).takes(X)
 
 
 @pytest.mark.parametrize("make", [
@@ -186,6 +212,14 @@ def test_default_variants_cover_the_design_points():
     lambda: dv.make_mxu(8, "FASTEST"),
     lambda: dv.Variant("vpu_bf16", 4, tt_inside=True),
     lambda: dv.Variant("vpu_f32", 4, prec="HIGH"),
+    lambda: dv.make_cols_bf16(8, 3),  # 8 warps run two blocks per SM
+    lambda: dv.make_cols_bf16(16, 3, 2),
+    lambda: dv.make_cols_bf16(16, 1),
+    lambda: dv.make_cols_bf16(16, 9),
+    lambda: dv.Variant("cols_bf16", 2),  # the column-owning design is a ColsVariant
+    lambda: dv.make_cols_bf16(12, 3),  # 12 warps: measured 1.5x slower than 16, dropped
+    lambda: dv.Variant("vpu_bf16", 0),
+    lambda: dv.Variant("mxu_f32", 8),  # the mma form needs its precision
 ])
 def test_variant_rejects_bad_knobs(make):
     with pytest.raises(ValueError):
@@ -218,6 +252,10 @@ def test_cuda_variant_matches_plain(v, N, K):
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     X, r = _operands(N, K, seed=8)
     Xc, rc = torch.from_numpy(X).cuda().to(v.dtype), torch.from_numpy(r).cuda()
+    if not v.takes(Xc):  # cols_bf16 at K % 8 != 0 refuses, never falls back
+        with pytest.raises(ValueError, match="K % 8"):
+            v(Xc, rc)
+        return
     before = dv.launches[v.kind]
     out = v(Xc, rc)
     again = v(Xc, rc)
@@ -227,7 +265,8 @@ def test_cuda_variant_matches_plain(v, N, K):
     t, tt, p = (o.cpu() for o in out)
     tp, ttp, pp = (o.cpu() for o in v.plain(Xc, rc))
     assert _rel(t, tp) < RTOL and _rel_tt(tt, ttp) < RTOL
-    if v.prec:  # K4: the second product on the kernel's own t
-        assert _rel(p, dv.mxu_plain_p(Xc, out[0], v.prec).cpu()) < RTOL
-    if v.prec != "DEFAULT":
+    prec = getattr(v, "prec", None)
+    if prec:  # K4: the second product on the kernel's own t
+        assert _rel(p, dv.mxu_plain_p(Xc, out[0], prec).cpu()) < RTOL
+    if prec != "DEFAULT":
         assert _rel(p, pp) < RTOL

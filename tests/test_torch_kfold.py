@@ -166,7 +166,7 @@ def test_cv_kfold_onepass_and_residual_chunk(zscore):
     if zscore:  # raw data with offsets: the closed-form z-scoring path
         X, Y = X * 2.0 + 3.0, Y - 1.5
     assign = tt.kfold_assignments(40, 4, 9).numpy()
-    fm = tt.FoldStatsAccumulator(10, 2, 4, torch.float64)
+    fm = tt.FoldStatsAccumulator(10, 2, 4, torch.float64, device="cpu")
     fr = js.FoldStatsAccumulator(10, 2, 4, jnp.float64)
     for i in range(0, 40, 16):
         fm.update(X[i : i + 16], Y[i : i + 16], assign[i : i + 16])

@@ -6,7 +6,8 @@ its port: StatsAccumulator (float64, and bf16 storage on float32 data at
 single-fold and mixed chunks, collect_moments at a large mean,
 fit_streaming, fit_streaming_csv, and `convert.stats_from_numpy`.  Float64
 results agree to 1e-10 relative; fits are compared through their
-coefficients (sign-free).
+coefficients (sign-free).  The port's side is asked for the CPU
+(`device="cpu"`): without it every entry point runs on the card.
 """
 
 import jax.numpy as jnp
@@ -57,7 +58,8 @@ def _accumulate(mod, X, Y, size, **kw):
 @pytest.mark.parametrize("size", [7, 64, 300])
 def test_stats_accumulator_f64(size):
     X, Y = _raw()
-    mine = _accumulate(ts, torch.from_numpy(X), torch.from_numpy(Y), size, dtype=torch.float64)
+    mine = _accumulate(ts, torch.from_numpy(X), torch.from_numpy(Y), size, dtype=torch.float64,
+                       device="cpu")
     ref = _accumulate(js, jnp.asarray(X), jnp.asarray(Y), size, dtype=jnp.float64)
     for name in ("XX", "XY", "YY", "sx", "sy"):
         _close(getattr(mine, name), getattr(ref, name))
@@ -69,7 +71,7 @@ def test_stats_accumulator_f64(size):
 
 def test_stats_accumulator_bf16_storage():
     X, Y = _raw(dtype=np.float32)
-    mine = _accumulate(ts, X, Y, 64, x_storage="bf16")
+    mine = _accumulate(ts, X, Y, 64, x_storage="bf16", device="cpu")
     ref = _accumulate(js, X, Y, 64, x_storage="bf16")
     for name in ("XX", "XY", "YY", "sx", "sy"):
         assert getattr(mine, name).dtype == torch.float32
@@ -80,18 +82,18 @@ def test_stats_accumulator_bf16_storage():
 
 def test_stats_accumulator_options():
     with pytest.raises(NotImplementedError, match="item 9"):
-        ts.StatsAccumulator(3, 1, compensated=True)
+        ts.StatsAccumulator(3, 1, compensated=True, device="cpu")
     with pytest.raises(ValueError, match="x_storage"):
-        ts.StatsAccumulator(3, 1, x_storage="fp8")
-    acc = ts.StatsAccumulator(4, 1, torch.float64).update(np.ones((3, 4)), np.ones(3))
+        ts.StatsAccumulator(3, 1, x_storage="fp8", device="cpu")
+    acc = ts.StatsAccumulator(4, 1, torch.float64, device="cpu").update(np.ones((3, 4)), np.ones(3))
     assert acc.XY.shape == (4, 1) and acc.n == 3
 
 
 def test_merge_equals_single_pass():
     X, Y = (torch.from_numpy(v) for v in _raw())
-    a = _accumulate(ts, X[:110], Y[:110], 50, dtype=torch.float64)
-    b = _accumulate(ts, X[110:], Y[110:], 50, dtype=torch.float64)
-    whole = _accumulate(ts, X, Y, 300, dtype=torch.float64)
+    a = _accumulate(ts, X[:110], Y[:110], 50, dtype=torch.float64, device="cpu")
+    b = _accumulate(ts, X[110:], Y[110:], 50, dtype=torch.float64, device="cpu")
+    whole = _accumulate(ts, X, Y, 300, dtype=torch.float64, device="cpu")
     a.merge(b)
     for name in ("XX", "XY", "YY", "sx", "sy"):
         _close(getattr(a, name), getattr(whole, name).numpy())
@@ -122,7 +124,7 @@ def _assign(kind, n=300, k=4):
 def test_fold_stats_accumulator_matches_jax(kind, size):
     X, Y = _raw()
     a = _assign(kind)
-    mine = ts.FoldStatsAccumulator(12, 3, 4, torch.float64)
+    mine = ts.FoldStatsAccumulator(12, 3, 4, torch.float64, device="cpu")
     ref = js.FoldStatsAccumulator(12, 3, 4, jnp.float64)
     for i in range(0, 300, size):
         mine.update(X[i : i + size], Y[i : i + size], a[i : i + size])
@@ -148,21 +150,22 @@ def test_fold_stats_accumulator_matches_jax(kind, size):
 def test_fold_stats_merge_and_checks():
     X, Y = _raw()
     a = _assign("random")
-    whole = ts.FoldStatsAccumulator(12, 3, 4, torch.float64).update(X, Y, a)
-    p = ts.FoldStatsAccumulator(12, 3, 4, torch.float64).update(X[:100], Y[:100], a[:100])
-    q = ts.FoldStatsAccumulator(12, 3, 4, torch.float64).update(X[100:], Y[100:], a[100:])
+    cpu = dict(dtype=torch.float64, device="cpu")
+    whole = ts.FoldStatsAccumulator(12, 3, 4, **cpu).update(X, Y, a)
+    p = ts.FoldStatsAccumulator(12, 3, 4, **cpu).update(X[:100], Y[:100], a[:100])
+    q = ts.FoldStatsAccumulator(12, 3, 4, **cpu).update(X[100:], Y[100:], a[100:])
     p.merge(q)
     for name in ("XXf", "XYf", "YYf", "sxf", "syf"):
         _close(getattr(p, name), getattr(whole, name).numpy())
     assert torch.equal(p.nf, whole.nf)
     with pytest.raises(ValueError, match="k=1"):
-        ts.FoldStatsAccumulator(3, 1, 1)
+        ts.FoldStatsAccumulator(3, 1, 1, device="cpu")
 
 
 def test_fold_stats_bf16_matches_jax():
     X, Y = _raw(dtype=np.float32)
     a = _assign("random")
-    mine = ts.FoldStatsAccumulator(12, 3, 4, x_storage="bf16")
+    mine = ts.FoldStatsAccumulator(12, 3, 4, x_storage="bf16", device="cpu")
     ref = js.FoldStatsAccumulator(12, 3, 4, x_storage="bf16")
     for i in range(0, 300, 50):
         mine.update(X[i : i + 50], Y[i : i + 50], a[i : i + 50])
@@ -175,7 +178,7 @@ def test_collect_moments_large_mean_f32():
     rng = np.random.default_rng(0)
     X = (1e4 + rng.normal(size=(4000, 3))).astype(np.float32)
     Y = (5e3 + rng.normal(size=(4000, 1))).astype(np.float32)
-    mx, sdx, my, sdy, n = ts.collect_moments(_chunks(X, Y, 512), 3, 1)
+    mx, sdx, my, sdy, n = ts.collect_moments(_chunks(X, Y, 512), 3, 1, device="cpu")
     rx, rsdx, rmy, rsdy, rn = js.collect_moments(_chunks(X, Y, 512), 3, 1, dtype=jnp.float32)
     assert n == rn == 4000
     np.testing.assert_allclose(mx.numpy(), X.mean(0), rtol=1e-5)
@@ -192,13 +195,15 @@ def test_fit_streaming_matches_jax():
     K, M = 12, 3
     for zscore in (False, True):
         kw = dict(zscore=zscore)
-        mom_t = ts.collect_moments(_chunks(X, Y, 40), K, M, torch.float64) if zscore else None
+        mom_t = (ts.collect_moments(_chunks(X, Y, 40), K, M, torch.float64, "cpu") if zscore
+                 else None)
         mom_j = js.collect_moments(_chunks(X, Y, 40), K, M, jnp.float64) if zscore else None
-        mine = ts.fit_streaming(_chunks(X, Y, 40), K, M, 4, moments=mom_t, dtype=torch.float64, **kw)
+        mine = ts.fit_streaming(_chunks(X, Y, 40), K, M, 4, moments=mom_t, dtype=torch.float64,
+                                device="cpu", **kw)
         ref = js.fit_streaming(_chunks(X, Y, 40), K, M, 4, moments=mom_j, dtype=jnp.float64, **kw)
         _coef(mine, ref)
     with pytest.raises(ValueError, match="moments"):
-        ts.fit_streaming(_chunks(X, Y, 40), K, M, 4, zscore=True)
+        ts.fit_streaming(_chunks(X, Y, 40), K, M, 4, zscore=True, device="cpu")
 
 
 def test_fit_streaming_csv_matches_jax(tmp_path):
@@ -206,7 +211,7 @@ def test_fit_streaming_csv_matches_jax(tmp_path):
     xp, yp = tmp_path / "x.csv", tmp_path / "y.csv"
     np.savetxt(xp, X, delimiter=",", fmt="%.17g")
     np.savetxt(yp, Y, delimiter=",", fmt="%.17g")
-    mine = ts.fit_streaming_csv(xp, yp, 3, chunk_rows=16, dtype=torch.float64)
+    mine = ts.fit_streaming_csv(xp, yp, 3, chunk_rows=16, dtype=torch.float64, device="cpu")
     ref = js.fit_streaming_csv(str(xp), str(yp), 3, chunk_rows=16, dtype=jnp.float64)
     _coef(mine, ref)
     # the z-scored streaming fit is the in-memory fit of z-scored data
@@ -223,7 +228,7 @@ def test_fit_streaming_csv_matches_jax(tmp_path):
 def test_stats_from_numpy_round_trip():
     X, Y = _raw()
     ref = _accumulate(js, jnp.asarray(X), jnp.asarray(Y), 64, dtype=jnp.float64)
-    mine = stats_from_numpy(ref)
+    mine = stats_from_numpy(ref, device="cpu")
     assert isinstance(mine, tt.StatsAccumulator) and mine.n == 300
     for name in ("XX", "XY", "YY", "sx", "sy"):
         _close(getattr(mine, name), getattr(ref, name), rtol=0)
@@ -231,7 +236,7 @@ def test_stats_from_numpy_round_trip():
     a = _assign("random")
     fref = js.FoldStatsAccumulator(12, 3, 4, jnp.float64).update(jnp.asarray(X), jnp.asarray(Y), a)
     fmine = stats_from_numpy({n: np.asarray(getattr(fref, n))
-                              for n in ("XXf", "XYf", "YYf", "sxf", "syf", "nf")})
+                              for n in ("XXf", "XYf", "YYf", "sxf", "syf", "nf")}, device="cpu")
     assert isinstance(fmine, tt.FoldStatsAccumulator) and fmine.k == 4 and fmine.n == 300
     _close(fmine.XXf, fref.XXf, rtol=0)
     _coef(fmine.fit(3), fref.fit(3))
