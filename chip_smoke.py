@@ -20,7 +20,9 @@ Phases, each of which fails the run:
      variant of the kernel-variant sweep's default lists (K3, K4 at
      DEFAULT/HIGH/HIGHEST, K5 in both designs) against its plain version
      and f64 at 10×15, 130×96, 300×401 (scalar staging), 4096×5000 and
-     65536×2048 (a cols_bf16 variant must refuse K % 8 != 0), two
+     65536×2048 (a cols_bf16 variant must refuse K % 8 != 0; K4 must take
+     its ring of 8-row TMA slots where K % 4 == 0, a ragged last slot at
+     130×96, and its scalar-staged tiles at 10×15 and 300×401), two
      launches bit-identical: K3, K5 and K4-HIGHEST ≤ 1e-5 against
      both; K4 DEFAULT/HIGH ≤ 1e-5 in t and tt against plain, p ≤ 1e-5
      against the plain second product on the kernel's own t (and at
@@ -50,7 +52,8 @@ Phases, each of which fails the run:
      default 65536×2048 and at 100000×5000, in f32 and in bf16, printing
      its tables (every variant beside the shipped kernel, the plain form
      and the copy ceiling), each row's err_p and err_tt against f64
-     within its bound (SWEEP_RTOL); each of K3-K5 must launch;
+     within its bound (SWEEP_RTOL); each of K3-K5 must launch, K4 on
+     its ring;
   7. the statistics path at the north star's width: raw 50000×10000 X and
      10 Y (rank-30 latent data, column offsets of 0.5-3 σ) made on the
      card from --seed and written as .npy into a temporary directory
@@ -547,11 +550,13 @@ def phase_variants(dv, kv, dev, seed: int) -> dict:
                 except ValueError:
                     continue
                 raise SmokeFailure(f"{v.name} {N}x{K}: ran a shape it does not take")
+            paths = dict(dv.mxu_path_launches)
             out = v.cuda(X, r)
             again = v.cuda(X, r)
             torch.cuda.synchronize()
             check(all(torch.equal(a, b) for a, b in zip(out, again)),
                   f"{v.name} {N}x{K}: two launches differ")
+            path = [k for k, n in dv.mxu_path_launches.items() if n != paths[k]]
             check(tuple(out[0].shape) == (N,) and tuple(out[2].shape) == (K,)
                   and out[1].dim() == 0 and all(o.dtype == torch.float32 for o in out),
                   f"{v.name} {N}x{K}: output shapes / dtypes")
@@ -563,6 +568,8 @@ def phase_variants(dv, kv, dev, seed: int) -> dict:
                 # against f64: within 10× the error of the plain emulation itself
                 budget = 10 * max(_rel3(plain, truth[v.dtype]))
             if prec:
+                want = "ring" if K % 4 == 0 else "staged"  # X from torch is 16-byte aligned
+                check(path == [want], f"{v.name} {N}x{K}: launched on {path}, not {want}")
                 # K4's p against the plain second product on the kernel's own t
                 # (see mxu_plain_p); at DEFAULT the whole chain's p is printed
                 # only, as a last-bit flip of tᵢ can move its bf16 rounding
@@ -571,7 +578,7 @@ def phase_variants(dv, kv, dev, seed: int) -> dict:
                 check(max(q[0], q_own, q[2]) <= KERNEL_RTOL,
                       f"{v.name} {N}x{K}: vs plain rel err t {q[0]:.2e} p (own t) "
                       f"{q_own:.2e} tt {q[2]:.2e} > {KERNEL_RTOL}")
-                line = f"p on own t {q_own:.2e}"
+                line = f"{want} path, p on own t {q_own:.2e}"
                 if prec == "DEFAULT":
                     # the check's power: p with t left unrounded (a kernel that
                     # skips t's bf16 re-rounding) must fall outside the bound
@@ -888,12 +895,15 @@ def main() -> int:
 
     times = phase_timing(deflate, dev, args.seed)
 
-    for k in dv.launches:  # the sweep path's run starts here
-        dv.launches[k] = 0
+    for counts in (dv.launches, dv.mxu_path_launches):  # the sweep path's run starts here
+        for k in counts:
+            counts[k] = 0
     tables = phase_sweep(kv, args.seed)
     sweep_launches = dict(dv.launches)  # ... and ends here
-    print(f"sweep path launches: {sweep_launches}")
+    print(f"sweep path launches: {sweep_launches}; K4 by path {dv.mxu_path_launches}")
     check(all(v > 0 for v in sweep_launches.values()), "a kernel of the sweep never launched")
+    check(dv.mxu_path_launches["ring"] == sweep_launches["mxu_f32"],
+          "K4 left its ring on the sweep path")
     launches.update(sweep_launches)
     times.update(best_variant_times(dv, kv, tables, dev, args.seed))
 

@@ -80,6 +80,17 @@ from pls_tpu_torch.cv.validation import (
 )
 from pls_tpu_torch.model import PLSModel
 from pls_tpu_torch.utils.gcc_rng import GccRng
+from pls_tpu_torch.utils.io import read_matrix_file, stream_matrix_file
+from pls_tpu_torch.utils.binio import (
+    cv_kfold_npy,
+    cv_repeated_kfold_npy,
+    fit_streaming_npy,
+    fold_stats_from_npy,
+    npy_chunks,
+    stats_from_npy,
+    stream_npy,
+    write_npy_chunked,
+)
 
 __all__ = [
     "KERNEL_TYPE1", "KERNEL_TYPE2", "METHOD", "MSE", "RESS", "VALIDATION_OUTPUT",
@@ -99,4 +110,7 @@ __all__ = [
     "compare_models", "optimal_num_components", "print_validation", "q_squared", "rmsep",
     "validation",
     "PLSModel", "GccRng",
+    "read_matrix_file", "stream_matrix_file",
+    "cv_kfold_npy", "cv_repeated_kfold_npy", "fit_streaming_npy", "fold_stats_from_npy",
+    "npy_chunks", "stats_from_npy", "stream_npy", "write_npy_chunked",
 ]

@@ -40,20 +40,40 @@ _NOT_PORTED_METHOD = (
 )
 
 
+# The JAX package hands `precision` to `jax.default_matmul_precision`
+# (`pls_tpu/models/kernel_pls.py:225-234`), which takes these names.  For
+# float32 products on a GPU they mean: HIGHEST full float32; HIGH and
+# DEFAULT TF32 (10-bit mantissa inputs, float32 sums).  Value: whether
+# TF32 is allowed.
+_PRECISION_TF32 = {
+    "highest": False, "float32": False,
+    "high": True, "tensorfloat32": True,
+    "default": True, "bfloat16": True,
+}
+
+
 @contextlib.contextmanager
 def _prec_ctx(precision: str | None):
-    """"highest": full float32 products (TF32 off) for the duration;
-    None: leave PyTorch's settings as they are."""
+    """Set PyTorch's float32 product precision for the duration, then
+    restore it.  The names are JAX's (`jax.default_matmul_precision`):
+    "highest"/"float32" -> full float32 (TF32 off); "high"/"tensorfloat32"
+    and "default"/"bfloat16" -> TF32, what XLA runs for HIGH and DEFAULT
+    float32 products on a GPU.  None leaves the settings as they are.
+    Float64 products and the CPU ignore the setting.  A name JAX refuses
+    ("fastest", "HIGHEST") raises ValueError; so do JAX's dot-algorithm
+    preset names, which the port does not map."""
     if precision is None:
         yield
         return
     if precision in ("compensated", "dd"):
         raise NotImplementedError(_NOT_PORTED_PRECISION.format(precision))
-    if precision != "highest":
-        raise ValueError(f"unknown precision {precision!r} (use 'highest' or None)")
+    if precision not in _PRECISION_TF32:
+        raise ValueError(f"unknown precision {precision!r} (use one of "
+                         f"{sorted(_PRECISION_TF32)} or None)")
+    tf32 = _PRECISION_TF32[precision]
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
     try:
         yield
     finally:
@@ -92,8 +112,9 @@ def fit(
         √w, so the fit sees XᵀWY / XᵀWX.
       power_iters: fixed power-method iterations instead of `eigh` for the
         M > 1 dominant eigenvector.
-      precision: "highest" (float32 products without TF32) or None
-        (PyTorch's current settings).
+      precision: a JAX precision name (`_prec_ctx`): "highest" (float32
+        products without TF32), "high"/"default" and their aliases (TF32),
+        or None (PyTorch's current settings).
       x_storage: "bf16" stores X in bfloat16 after masking and weighting;
         every contraction accumulates in float32 and the model state is
         float32.  Y is rounded to bf16 in XᵀY, as in the JAX package.

@@ -20,7 +20,8 @@ Every entry point here takes `device`; None is the card (RuntimeError
 without one: pass device="cpu"), whatever device the chunks are on.
 
 `precision` is the matmul setting of the Gram updates (`kernel_pls._prec_ctx`:
-"highest" = float32 without TF32, None = PyTorch's current settings).
+"highest" = float32 without TF32, "high"/"default" = TF32, None = PyTorch's
+current settings).
 `x_storage="bf16"` rounds each chunk of X (and Y in XᵀY) to bfloat16 and
 accumulates in float32: the products are exact in float32, so only the
 chunk's representation rounds.  The chunk is widened to float32 for the

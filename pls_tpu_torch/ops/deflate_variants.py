@@ -7,6 +7,9 @@ that chose the JAX package's shipped kernel:
   float32 X, tt inside the kernel or as r·p outside it;
 - K4 `make_mxu(tn, prec)` (lines 153-206): t and p as matrix-unit matvecs
   at DEFAULT (1 bf16 pass), HIGH (3) or HIGHEST (6), tt = t·t outside;
+  on 16-byte-aligned X with K % 4 == 0 the ring kernel `mxu_ring` (a
+  producer warp keeps `stages` slots of 8 rows in flight with TMA bulk
+  copies, `mxu_plan`), else the row-staged `mxu_rows` with R = tn rows;
 - K5 `make_vpu_bf16(tn, vmem_mb)` (lines 208-272): K3's form on bfloat16
   X widened in registers, tt = r·p; beside it `make_cols_bf16(warps,
   stages, blocks)`, the same function in the column-owning design that is
@@ -22,7 +25,8 @@ tensor-core instructions); its header says how the TPU's knobs map onto
 the card's: `tn` becomes R, the rows per staged shared-memory tile (≤ 8
 VPU, ≤ 16 mma, lowered to the largest power of two that fits); `vmem_mb`
 becomes `smem_kb`, the shared memory each block reserves (and so the
-blocks per SM); Pallas's double buffering becomes `stages` (1 or 2).
+blocks per SM); Pallas's double buffering becomes `stages` (1 or 2; for
+K4 the ring's slots, 1-4, of which the row-staged path takes at most 2).
 
 Beside each kernel, its plain PyTorch version: `vpu_f32_plain`,
 `vpu_bf16_plain` (also the cols rows') and `mxu_plain`, the two-product
@@ -30,7 +34,8 @@ form on the operands the kernel sees (bf16-rounded or split for the mma form, t 
 DEFAULT as the TPU's matrix unit does).  A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises, with no fallback.
 
-`launches` counts, per kernel, the calls that launched it.
+`launches` counts, per kernel, the calls that launched it;
+`mxu_path_launches` counts K4's per path ("ring" or "staged").
 """
 
 from __future__ import annotations
@@ -54,10 +59,14 @@ _SPLITS = {1: 1, 3: 2, 6: 3}  # bf16 parts each operand is split into
 # passes take the last P, in the kernel's order
 _TERMS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 VPU_MAX_ROWS, MMA_MAX_ROWS = 8, 16
+# K4's ring (csrc/deflate_variants.cu, `mxu_ring`): rows of a slot (the
+# n = 8 of mma.m16n8k16) and most slots
+MXU_ROWS, MXU_MAX_STAGES = 8, 4
 # the column-owning kernel's instantiations (csrc/deflate_variants.cu):
 # (consumer warps, blocks per SM)
 COLS_CONFIGS = ((16, 1), (8, 2))
 launches = {"vpu_f32": 0, "mxu_f32": 0, "vpu_bf16": 0, "cols_bf16": 0}
+mxu_path_launches = {"ring": 0, "staged": 0}
 
 
 # ---------- plain versions ----------
@@ -121,6 +130,50 @@ def mxu_plain_p(X: torch.Tensor, t: torch.Tensor, prec: str = "DEFAULT",
     return _split_products([x.T for x in xs], bf16_split(t, n), passes)
 
 
+# ---------- K4's ring: the plan ----------
+def mxu_pitch(K: int) -> int:
+    """Floats between two rows of K4's staged tiles: K rounded up to whole
+    16-column chunks, then to ≡ 8 (mod 32), so that neither phase's
+    fragment loads meet in one shared-memory bank more than twice
+    (`csrc/deflate_variants.cu`, `mxu_pitch`)."""
+    k16 = -(-K // 16) * 16
+    return k16 + (8 if k16 % 32 == 0 else 24)
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@dataclass(frozen=True)
+class MxuPlan:
+    """One launch of `mxu_ring`: G blocks (one per SM, at most one per
+    tile), `stages` ring slots of `slot_bytes` (MXU_ROWS rows of `pitch`
+    floats), `smem` dynamic shared memory in all (the p accumulator, r's
+    bf16 parts and the ring)."""
+
+    G: int
+    stages: int
+    pitch: int
+    slot_bytes: int
+    smem: int
+
+
+def mxu_plan(N: int, K: int, passes: int, stages: int, budget: int, sms: int) -> MxuPlan | None:
+    """The ring's plan for X (N, K) at `passes` bf16 products: `stages`
+    slots, or as many as fit `budget` bytes beside the p accumulator and
+    the split parts of r, at least one; None where K % 4 != 0 (the bulk
+    copies move whole 16-byte rows) or not one slot fits."""
+    if K % 4:
+        return None
+    pitch = mxu_pitch(K)
+    fixed = _align16(4 * K) + _align16(2 * pitch * _SPLITS[passes])
+    slot = MXU_ROWS * pitch * 4
+    fit = min(stages, MXU_MAX_STAGES, (budget - fixed) // slot)
+    if fit < 1:
+        return None
+    return MxuPlan(min(sms, -(-N // MXU_ROWS)), fit, pitch, slot, fixed + fit * slot)
+
+
 # ---------- the CUDA library ----------
 @functools.cache
 def _library() -> ctypes.CDLL:
@@ -129,7 +182,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("deflate_variants.cu")
     lib.kv_plan.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int),
     ]
     lib.kv_plan.restype = ctypes.c_int
@@ -139,6 +192,8 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.kv_launch.restype = ctypes.c_int
+    lib.kv_mxu_limits.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.kv_mxu_limits.restype = ctypes.c_int
     lib.kv_cols_limits.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
     lib.kv_cols_limits.restype = ctypes.c_int
     lib.kv_cols_launch.argtypes = [
@@ -163,13 +218,23 @@ def _check(err: int, what: str) -> None:
 
 @functools.lru_cache(maxsize=256)
 def _plan(device_index: int, code: int, vec: int, N: int, K: int, rows: int, stages: int,
-          smem_kb: int) -> tuple[int, int, int]:
+          smem_kb: int, passes: int) -> tuple[int, int, int]:
     G, R, per_sm = ctypes.c_int64(), ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device_index):
-        _check(_library().kv_plan(code, vec, N, K, rows, stages, smem_kb, ctypes.byref(G),
+        _check(_library().kv_plan(code, vec, N, K, rows, stages, smem_kb, passes, ctypes.byref(G),
                                   ctypes.byref(R), ctypes.byref(per_sm)),
                "kernel variant plan")
     return G.value, R.value, per_sm.value
+
+
+@functools.lru_cache(maxsize=64)
+def _mxu_plan(device_index: int, N: int, K: int, passes: int, stages: int) -> MxuPlan | None:
+    """`mxu_plan` with the device's budget and SM count."""
+    budget, sms = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        _check(_library().kv_mxu_limits(passes, ctypes.byref(budget), ctypes.byref(sms)),
+               "mxu_ring limits")
+    return mxu_plan(N, K, passes, stages, budget.value, sms.value)
 
 
 @functools.lru_cache(maxsize=64)
@@ -214,9 +279,11 @@ class Variant:
     """One row-staged kernel variant: `fn(X, r) -> (t, tt, p)`, float32.
 
     kind: "vpu_f32" (K3), "mxu_f32" (K4) or "vpu_bf16" (K5); tn: the rows
-    per staged tile asked for; stages: 1 or 2 staging buffers; smem_kb:
+    per staged tile asked for; stages: 1 or 2 staging buffers (K4: 1-4
+    ring slots, of which the row-staged path takes at most 2); smem_kb:
     the shared memory a block reserves (None: the device's maximum, one
-    block per SM); tt_inside (K3): the kernel sums tᵢ² itself; prec (K4)."""
+    block per SM; not K4's ring, which takes the device's maximum);
+    tt_inside (K3): the kernel sums tᵢ² itself; prec (K4)."""
 
     kind: str
     tn: int
@@ -231,8 +298,9 @@ class Variant:
         max_rows = MMA_MAX_ROWS if self.kind == "mxu_f32" else VPU_MAX_ROWS
         if not 1 <= self.tn <= max_rows:
             raise ValueError(f"{self.kind}: tn must be in 1..{max_rows}, got {self.tn}")
-        if self.stages not in (1, 2):
-            raise ValueError(f"stages must be 1 or 2, got {self.stages}")
+        most = MXU_MAX_STAGES if self.kind == "mxu_f32" else 2
+        if not 1 <= self.stages <= most:
+            raise ValueError(f"{self.kind}: stages must be in 1..{most}, got {self.stages}")
         if self.smem_kb is not None and self.smem_kb < 1:
             raise ValueError(f"smem_kb must be positive, got {self.smem_kb}")
         if (self.prec is not None) != (self.kind == "mxu_f32"):
@@ -272,17 +340,32 @@ class Variant:
         """Whether the kernel runs on X (every shape and alignment)."""
         return True
 
-    def plan(self, X: torch.Tensor, r: torch.Tensor) -> tuple[int, int, int]:
-        """(G, R, blocks per SM) of this variant for X on its device."""
-        return self._plan_for(X, self._vec(X, r))
+    @property
+    def _passes(self) -> int:
+        return PRECISIONS[self.prec] if self.prec else 1
 
-    def _plan_for(self, X: torch.Tensor, vec: int) -> tuple[int, int, int]:
+    def _launch_plan(self, X: torch.Tensor, r: torch.Tensor):
+        """(vec, G, R, stages, blocks per SM, ring) of the launch for X: K4's
+        ring where it takes X, else the row-staged plan (K4's with scalar
+        staging, in at most 2 buffers)."""
         N, K = X.shape
-        G, R, per_sm = _plan(X.device.index, _KINDS[self.kind][0], vec, N, K,
-                             self.tn, self.stages, self.smem_kb or 0)
+        vec = self._vec(X, r)
+        if self.kind == "mxu_f32":
+            ring = _mxu_plan(X.device.index, N, K, self._passes, self.stages) if vec > 1 else None
+            if ring is not None:
+                return vec, ring.G, MXU_ROWS, ring.stages, 1, True
+            vec = 1  # K4 stages rows in 16-byte units only in its ring
+        stages = min(self.stages, 2)
+        G, R, per_sm = _plan(X.device.index, _KINDS[self.kind][0], vec, N, K, self.tn, stages,
+                             self.smem_kb or 0, self._passes)
         if R == 0:
             raise ValueError(f"{self.name}: not one row of K={K} and the p accumulator fit "
-                             f"{self.stages} staging buffer(s) in the block's shared memory")
+                             f"{stages} staging buffer(s) in the block's shared memory")
+        return vec, G, R, stages, per_sm, False
+
+    def plan(self, X: torch.Tensor, r: torch.Tensor) -> tuple[int, int, int]:
+        """(G, R, blocks per SM) of this variant for X on its device."""
+        _, G, R, _, per_sm, _ = self._launch_plan(X, r)
         return G, R, per_sm
 
     def cuda(self, X: torch.Tensor, r: torch.Tensor):
@@ -290,8 +373,7 @@ class Variant:
         kernel does not take, and if the launch fails."""
         _check_operands(self.name, self.dtype, X, r)
         N, K = X.shape
-        vec = self._vec(X, r)
-        G, R, _ = self._plan_for(X, vec)
+        vec, G, R, stages, _, ring = self._launch_plan(X, r)
         t, tt, p, partial = _outputs(X, G)
         tt_part = torch.empty(G, dtype=torch.float32, device=X.device) if self.tt_inside else None
         with torch.cuda.device(X.device):
@@ -299,12 +381,13 @@ class Variant:
                 _KINDS[self.kind][0], vec, X.data_ptr(), r.data_ptr(),
                 t.data_ptr(), p.data_ptr(), tt.data_ptr(), partial.data_ptr(),
                 tt_part.data_ptr() if tt_part is not None else None,
-                N, K, G, R, self.stages, int(self.tt_inside),
-                PRECISIONS[self.prec] if self.prec else 1,
+                N, K, G, R, stages, int(self.tt_inside), self._passes,
                 torch.cuda.current_stream().cuda_stream,
             )
         _check(err, f"{self.name} launch")
         launches[self.kind] += 1
+        if self.kind == "mxu_f32":
+            mxu_path_launches["ring" if ring else "staged"] += 1
         return t, tt, p
 
     def __call__(self, X: torch.Tensor, r: torch.Tensor):
@@ -321,7 +404,9 @@ def make_vpu_1k(tn: int, tt_inside: bool, smem_kb: int | None = None,
 
 
 def make_mxu(tn: int, prec: str, stages: int = 2) -> Variant:
-    """K4: t and p as bf16 tensor-core matvecs at `prec`."""
+    """K4: t and p as bf16 tensor-core matvecs at `prec`; `stages` ring
+    slots (1-4) of 8 rows on 16-byte-aligned X with K % 4 == 0, else tn
+    rows per staged tile in min(stages, 2) buffers."""
     return Variant("mxu_f32", tn, stages, prec=prec)
 
 

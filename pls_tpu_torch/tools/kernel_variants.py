@@ -17,9 +17,10 @@ X, as the JAX tool does.  One line per row:
   it takes the shape), and with KV_BF16 `shipped_bf16_staged`, K2's
   earlier row-staged design (`ops.deflate.staged_plan_for`) on the same X;
 - `plain_f32` / `plain_bf16`: the two-product form (`deflate_pass_plain`);
-- the variants (`default_variants`): K3 `vpu_1k_*` and K4 `mxu_*` on
-  float32 X, or K5 with KV_BF16: the row-staged `vpu_bf16_*` and the
-  column-owning `cols_bf16_w{warps}[x{blocks}]_s{stages}`.
+- the variants (`default_variants`): K3 `vpu_1k_*` and K4
+  `mxu_{prec}_r8_s{slots}` (its ring of 8-row slots) on float32 X, or
+  K5 with KV_BF16: the row-staged `vpu_bf16_*` and the column-owning
+  `cols_bf16_w{warps}[x{blocks}]_s{stages}`.
 
 Each row gives ms per component and one-pass GB/s (N·K·itemsize over the
 time), err_p = max|p − p₆₄| / max|p₆₄| and err_tt = |tt − tt₆₄| / tt₆₄, the
@@ -52,7 +53,7 @@ from pls_tpu_torch.ops import deflate, deflate_variants as dv
 F32_ROWS = (1, 2, 4, 8)
 STAGES = (1, 2)
 SMEM_KB = (None, 110)  # the block's reservation: 1 block per SM, or 2
-MXU_TILES = ((16, 1), (8, 2))  # (rows, stages): one 16-row buffer, or two of 8
+MXU_STAGES = (2, 3)  # K4's ring slots of 8 rows: 2 or 3 fit at K = 2048
 BF16_ROWS = (2, 4, 8)
 COLS_STAGES = (2, 3, 4)  # ring slots of each cols_bf16 configuration
 WARMUP_CHAIN, REPS = 5, 3
@@ -66,7 +67,8 @@ def default_variants(bf16: bool) -> list[dv.Variant | dv.ColsVariant]:
     out = [dv.make_vpu_1k(tn, False, kb, st) for tn in F32_ROWS for st in STAGES
            for kb in SMEM_KB]
     out.append(dv.make_vpu_1k(4, True))
-    out += [dv.make_mxu(tn, prec, stages=st) for prec in dv.PRECISIONS for tn, st in MXU_TILES]
+    out += [dv.make_mxu(dv.MXU_ROWS, prec, stages=st) for prec in dv.PRECISIONS
+            for st in MXU_STAGES]
     return out
 
 

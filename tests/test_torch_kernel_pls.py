@@ -185,6 +185,50 @@ def test_fit_matches_reference_goldens(name, A, golden):
     assert tt.loadings_y(f1).shape == (Y.shape[1], A)
 
 
+JAX_PRECISION_NAMES = ("highest", "float32", "high", "tensorfloat32", "default", "bfloat16")
+
+
+@pytest.mark.parametrize("precision", JAX_PRECISION_NAMES)
+@pytest.mark.parametrize("name,A", [("toy", 2), ("nir", 10)])
+def test_fit_takes_every_jax_precision_name(name, A, precision, golden):
+    """Each name `jax.default_matmul_precision` takes fits toy and nir and
+    matches pls_tpu under the same name (float64 on the CPU, where the
+    setting changes no product)."""
+    X, Y = golden(f"{name}_Xz"), golden(f"{name}_Yz")
+    f_jax = jax_kernel_pls.fit(jnp.asarray(X), jnp.asarray(Y), A, precision=precision)
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    f_torch = kernel_pls.fit(torch.from_numpy(X), torch.from_numpy(Y), A, precision=precision)
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == before
+    _assert_fits_equal(f_torch, f_jax, atol=1e-10 if name == "toy" else 1e-9)
+
+
+@pytest.mark.parametrize("precision,tf32", [
+    ("highest", False), ("float32", False), ("high", True), ("tensorfloat32", True),
+    ("default", True), ("bfloat16", True),
+])
+def test_precision_names_set_tf32_and_restore(precision, tf32):
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        for start in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = start
+            with kernel_pls._prec_ctx(precision):
+                assert torch.backends.cuda.matmul.allow_tf32 is tf32
+                assert torch.backends.cudnn.allow_tf32 is tf32
+            assert torch.backends.cuda.matmul.allow_tf32 is start
+            assert torch.backends.cudnn.allow_tf32 is start
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("precision", ["fastest", "HIGHEST", "bogus"])
+def test_precision_name_jax_refuses_raises(precision):
+    X, Y = _data()
+    with pytest.raises(ValueError):
+        jax_kernel_pls.fit(jnp.asarray(X), jnp.asarray(Y), 2, precision=precision)
+    with pytest.raises(ValueError, match="unknown precision"):
+        tt.fit(torch.from_numpy(X), torch.from_numpy(Y), 2, precision=precision)
+
+
 def test_unported_options_raise():
     X, Y = (torch.from_numpy(v) for v in _data())
     for method in (tt.METHOD.NIPALS, tt.METHOD.SIMPLS):

@@ -30,7 +30,15 @@ Inputs come from numpy.random.default_rng(seed) and go to both packages as
 the same arrays.  The CUDA kernels run only on a card: those cases are
 marked `gpu` and skip here.  On the card they hold every variant of the
 sweep's default lists against its plain version at 1e-5 (K4's p against
-`mxu_plain_p` of the kernel's own t), with two bit-identical launches.
+`mxu_plain_p` of the kernel's own t), with two bit-identical launches, and
+K4 at chip_smoke.py's VARIANT_SHAPES on the path each shape takes (the
+ring of 8-row TMA slots, or the scalar-staged tiles for K % 4 != 0 and
+misaligned X).
+
+K4's ring plan (`mxu_plan`: pitch, slots, slot bytes, blocks) is plain
+Python and is held here against the H100's limits (232 448 bytes of
+shared memory a block, 132 SMs), and its pitch against the bank
+arithmetic the kernel's comment gives.
 """
 
 import jax
@@ -39,6 +47,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import VARIANT_SHAPES
 from pls_tpu.ops.deflate import _deflate_pass_pallas, deflate_pass_xla
 from pls_tpu_torch.ops import deflate_variants as dv
 from pls_tpu_torch.tools import kernel_variants as kv
@@ -158,9 +167,9 @@ def test_bf16_split_parts(n):
 def test_variant_on_cpu_takes_plain_version(v):
     X, r = _operands(37, 21, seed=6)
     Xt, rt = torch.from_numpy(X).to(v.dtype), torch.from_numpy(r)
-    before = dict(dv.launches)
+    before, paths = dict(dv.launches), dict(dv.mxu_path_launches)
     t, tt, p = v(Xt, rt)
-    assert dv.launches == before
+    assert dv.launches == before and dv.mxu_path_launches == paths
     assert t.dtype == tt.dtype == p.dtype == torch.float32
     assert t.shape == (37,) and p.shape == (21,) and tt.shape == ()
     for a, b in zip((t, tt, p), v.plain(Xt, rt)):
@@ -210,6 +219,8 @@ def test_cols_variant_takes_k_multiple_of_8_within_its_registers(N, K, takes):
     lambda: dv.make_vpu_1k(4, False, smem_kb=0),
     lambda: dv.make_mxu(17, "HIGH"),
     lambda: dv.make_mxu(8, "FASTEST"),
+    lambda: dv.make_mxu(8, "HIGH", stages=5),  # the ring holds at most 4 slots
+    lambda: dv.make_mxu(8, "HIGH", stages=0),
     lambda: dv.Variant("vpu_bf16", 4, tt_inside=True),
     lambda: dv.Variant("vpu_f32", 4, prec="HIGH"),
     lambda: dv.make_cols_bf16(8, 3),  # 8 warps run two blocks per SM
@@ -224,6 +235,99 @@ def test_cols_variant_takes_k_multiple_of_8_within_its_registers(N, K, takes):
 def test_variant_rejects_bad_knobs(make):
     with pytest.raises(ValueError):
         make()
+
+
+# ---------- K4's ring plan, against the H100's limits ----------
+H100_SMEM_OPTIN, H100_SMS = 232_448, 132
+RING_STATIC_SMEM = 2 * 4 * 8 + 2 * 8 * 8 * 4  # full/empty mbarriers, the t partials
+H100_RING_BUDGET = H100_SMEM_OPTIN - RING_STATIC_SMEM
+
+
+@pytest.mark.parametrize("K", [15, 96, 401, 2048, 5000])
+def test_mxu_pitch_keeps_fragment_loads_off_shared_banks(K):
+    P = dv.mxu_pitch(K)
+    assert P >= -(-K // 16) * 16 and P % 32 == 8 and P - K < 40
+    g, q = np.meshgrid(np.arange(8), np.arange(4), indexing="ij")
+    # phase 1: 8-byte loads of columns 2q, 2q + 1 at rows g, by half-warps
+    for half in (g < 4, g >= 4):
+        words = (g * P + 2 * q)[half]
+        banks = np.concatenate([words % 32, (words + 1) % 32])
+        assert len(set(banks.tolist())) == 32  # sixteen lanes, thirty-two banks
+    # phase 2: scalar loads at rows 2q + b, column g: at most two lanes a bank
+    for b in (0, 1):
+        counts = np.bincount(((2 * q + b) * P + g).ravel() % 32, minlength=32)
+        assert counts.max() <= 2
+    # the unpadded pitch of K = 2048 put eight lanes in one bank
+    assert np.bincount(((g * 2048 + 2 * q).ravel()) % 32).max() == 8
+
+
+@pytest.mark.parametrize("passes", [1, 3, 6])
+@pytest.mark.parametrize("K", [15, 96, 401, 2048, 5000])
+def test_mxu_plan_against_h100_limits(K, passes):
+    N = 65_536
+    plans = {st: dv.mxu_plan(N, K, passes, st, H100_RING_BUDGET, H100_SMS)
+             for st in range(1, dv.MXU_MAX_STAGES + 1)}
+    if K % 4:  # the bulk copies move whole rows of 16-byte units: the scalar path
+        assert all(p is None for p in plans.values())
+        return
+    P = dv.mxu_pitch(K)
+    fixed = -(-4 * K // 16) * 16 + -(-2 * P * {1: 1, 3: 2, 6: 3}[passes] // 16) * 16
+    for asked, plan in plans.items():
+        assert plan.pitch == P and plan.slot_bytes == dv.MXU_ROWS * P * 4
+        assert plan.smem == fixed + plan.stages * plan.slot_bytes <= H100_RING_BUDGET
+        assert plan.G == H100_SMS
+        most = (H100_RING_BUDGET - fixed) // plan.slot_bytes
+        assert plan.stages == min(asked, most, dv.MXU_MAX_STAGES)
+    if K == 2048:  # the sweep's rows: 2 and 3 slots of 64.25 KB both fit
+        assert [plans[st].stages for st in kv.MXU_STAGES] == [2, 3]
+        assert plans[4].stages == 3
+    if K == 5000:  # one 157 KB slot: the wide-K case, correct and timed, not tuned
+        assert {p.stages for p in plans.values()} == {1}
+    if K == 96:
+        assert plans[4].stages == 4 and plans[4].smem < 20_000
+
+
+def test_mxu_plan_refuses_k_past_one_slot_and_caps_blocks_at_tiles():
+    assert dv.mxu_plan(1000, 8192, 1, 2, H100_RING_BUDGET, H100_SMS) is None  # 263 KB a slot
+    assert dv.mxu_plan(20, 96, 1, 2, H100_RING_BUDGET, H100_SMS).G == 3  # ceil(20 / 8) tiles
+
+
+@pytest.mark.parametrize("N,K,offset,path", [
+    (130, 96, 0, "ring"), (65_536, 2048, 0, "ring"), (4096, 5000, 0, "ring"),
+    (300, 401, 0, "staged"), (10, 15, 0, "staged"),  # K % 4 != 0
+    (130, 96, 1, "staged"),  # X not 16-byte aligned
+    (64, 8192, 0, "staged"),  # not one 8-row slot fits
+])
+def test_mxu_launch_plan_picks_its_path(monkeypatch, N, K, offset, path):
+    """K4's choice between its ring and the scalar-staged tiles, with the
+    device's limits faked as the H100's (the launch itself needs a card)."""
+    monkeypatch.setattr(dv, "_mxu_plan", lambda dev, N, K, passes, stages: dv.mxu_plan(
+        N, K, passes, stages, H100_RING_BUDGET, H100_SMS))
+    staged_calls = []
+
+    def fake_plan(dev, code, vec, N, K, rows, stages, smem_kb, passes):
+        staged_calls.append((code, vec, rows, stages, passes))
+        return min(H100_SMS, -(-N // rows)), rows, 1
+
+    monkeypatch.setattr(dv, "_plan", fake_plan)
+    X = torch.zeros(N * K + offset)[offset:].view(N, K)
+    r = torch.zeros(K)
+    v = dv.make_mxu(16, "HIGH", stages=3)
+    vec, G, R, stages, per_sm, ring = v._launch_plan(X, r)
+    assert ring == (path == "ring")
+    if ring:
+        assert (vec, R, per_sm) == (4, dv.MXU_ROWS, 1) and not staged_calls
+        assert stages == (1 if K == 5000 else 3) and G == min(H100_SMS, -(-N // 8))
+    else:  # scalar staging, 16 rows, at most two buffers, sized for HIGH's two planes
+        assert staged_calls == [(2, 1, 16, 2, 3)] and (vec, R, stages) == (1, 16, 2)
+
+
+def test_mxu_rows_are_ring_slot_counts_at_every_precision():
+    mxu = [v for v in kv.default_variants(False) if v.kind == "mxu_f32"]
+    assert [v.name for v in mxu] == [f"mxu_{p}_r8_s{s}" for p in dv.PRECISIONS
+                                     for s in kv.MXU_STAGES]
+    assert all(v.tn == dv.MXU_ROWS for v in mxu)
+    assert set(dv.mxu_path_launches) == {"ring", "staged"}
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -270,3 +374,33 @@ def test_cuda_variant_matches_plain(v, N, K):
         assert _rel(p, dv.mxu_plain_p(Xc, out[0], prec).cpu()) < RTOL
     if prec != "DEFAULT":
         assert _rel(p, pp) < RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stages", [2, 3])
+@pytest.mark.parametrize("prec", list(dv.PRECISIONS))
+@pytest.mark.parametrize("N,K", VARIANT_SHAPES + [(130, 96)])
+def test_cuda_mxu_on_its_path_matches_plain(N, K, prec, stages):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    X, r = _operands(N, K, seed=9)
+    Xc, rc = torch.from_numpy(X).cuda(), torch.from_numpy(r).cuda()
+    v = dv.make_mxu(dv.MXU_ROWS, prec, stages)
+    cases = [(Xc, "ring" if K % 4 == 0 else "staged")]
+    if K % 4 == 0:  # X 16-byte misaligned: the scalar-staged path
+        buf = torch.empty(N * K + 1, device="cuda")
+        Xm = buf[1:].view(N, K)
+        Xm.copy_(Xc)
+        cases.append((Xm, "staged"))
+    for XX, path in cases:
+        before = dict(dv.mxu_path_launches)
+        out = v(XX, rc)
+        again = v(XX, rc)
+        torch.cuda.synchronize()
+        assert dv.mxu_path_launches[path] == before[path] + 2
+        assert all(torch.equal(a, b) for a, b in zip(out, again))
+        tp, ttp, pp = v.plain(XX, rc)
+        assert _rel(out[0].cpu(), tp.cpu()) < RTOL and _rel_tt(out[1].cpu(), ttp.cpu()) < RTOL
+        assert _rel(out[2].cpu(), dv.mxu_plain_p(XX, out[0], prec).cpu()) < RTOL
+        if prec != "DEFAULT":
+            assert _rel(out[2].cpu(), pp.cpu()) < RTOL
