@@ -67,11 +67,32 @@ Phases, each of which fails the run:
      on the device-resident errors; prints the disk→card rate beside the
      file's read rate and the pinned host→device copy rate, the k-fold
      wall, LOO folds per second and the peak device memory.  This path
-     runs none of K1-K5.
+     runs none of K1-K5;
+  8. the NIPALS/SIMPLS, precision, preprocessing and bootstrap slice at
+     100000×5000×10 (make_big, A = 20; NIPALS at NIPALS_A): SIMPLS and
+     NIPALS in float32 against the same method in float64 on the same
+     data (5e-3 of the coefficients), each fit launching K1 exactly A
+     times, NIPALS's inner iterations per component, the fits' walls by
+     CUDA events beside kernel type 1's (SIMPLS's and type 1's from a
+     second fit, NIPALS's from its one); precision="dd" types 1 and 2
+     against the float64 fit (1e-10 for float64 input, float32 rounding
+     for float32 input) and at the deep-A stress of
+     tests/test_fit_parity.py:287-293 (256×128×3, A = 50, ≤ 1e-4 against
+     float64, plain float32 printed beside it); compensated statistics over
+     1M rows × K = 64 (`tools.precision_at_scale.run`, XᵀX within 1.09e-8
+     of float64); `apply_chain("savgol:11:2:1,snv")` against float64 (1e-5);
+     the CLI on nir with `--method nipals`, `--method simpls` and
+     `--preprocess savgol:11:2:1,snv`, in float32 on the card against the
+     port's float64 run on the CPU (phase 3's tolerances, but 0.1 for
+     SIMPLS's coefficients, SIMPLS_NIR_COEF_RTOL; equal component counts,
+     A launches of K1 each); the bootstrap on nir (A = 10, 200
+     replicates, int32 draws) against the same call in float64 on the CPU
+     (5e-3), with its wall.
 
 The K1/K2 launch counts are set to 0 just before phase 3 and read just
 after phase 4; the K3-K5 counts just before and after phase 6; all of
-them just before and after phase 7, where they stay 0.  The last
+them just before and after phase 7, where they stay 0, and just before
+and after phase 8, whose K1 launches join phase 3-4's in the record.  The last
 two lines of stdout are the kernels' JSON record (K1-K5; ms is the
 back-to-back time per call, K1/K2 at 100000×5000, K3-K5 of the best
 variant at 65536×2048 by the sweep's chain slope, timed again back to
@@ -152,6 +173,26 @@ STATS_K, STATS_A, LOO_FOLDS, LOO_CHECKED = 10, 20, 1000, 4
 STATS_CHUNK = 8192  # rows per chunk when writing the files
 STATS_RTOL = 1e-4  # XᵀX, XᵀY: relative Frobenius error against f64
 LOO_ATOL = 5e-3  # held-out errors, relative to Y's scale (σ = 1 after z-scoring)
+
+# phase 8: the NIPALS/SIMPLS, precision, preprocessing and bootstrap slice
+SLICE_A = 20
+NIPALS_A = 20  # NIPALS's component count at 100k×5k (its 500-iteration cap sets the wall)
+METHOD_COEF_RTOL = 5e-3  # float32 against float64 of the same method (COEF_RTOL)
+DD_RTOL = 1e-10  # precision="dd" on float64 input against the float64 fit
+DD_F32_RTOL = 1e-6  # ... on float32 input: its state rounded to float32
+DD_STRESS = (256, 128, 3, 50)  # N, K, M, A of tests/test_fit_parity.py:287-293
+DD_STRESS_RTOL = 1e-4
+COMP_STATS = (1_000_000, 16_384, 64, 4)  # rows, chunk, K, M
+COMP_XX_RTOL = 1.09e-8  # the JAX package's compensated XᵀX at 9 994 240 rows
+# SIMPLS's coefficients on nir at A = 10 in float32: its single Gram-Schmidt
+# of the loadings loses orthogonality over the collinear spectra, in the
+# JAX package too (its float32 fit is 6.2e-2 from float64 on the CPU, the
+# port's 1.3e-2 there); explained variance, RMSE and the choice of
+# components keep phase 3's tolerances
+SIMPLS_NIR_COEF_RTOL = 0.1
+CHAIN = "savgol:11:2:1,snv"
+CHAIN_RTOL = 1e-5
+BOOT_A, BOOT_REPS, BOOT_RTOL = 10, 200, 5e-3
 
 # (kernel name, its source in pls_tpu_torch/csrc, the TPU kernel it
 # replaces, the launch counters that are its launches)
@@ -862,6 +903,189 @@ def phase_stats(dev, seed: int) -> dict:
         torch.cuda.empty_cache()
 
 
+def event_wall(fn):
+    """(fn(), seconds between CUDA events recorded around it)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1) / 1e3
+
+
+def hard_data(seed: int = 0):
+    """tests/test_fit_parity.py:287-293's deep-A stress data, float64 numpy."""
+    N, K, M, _ = DD_STRESS
+    rng = np.random.default_rng(seed)
+    L = rng.normal(size=(N, 60)) * (1.5 ** -np.arange(60))
+    X = L @ rng.normal(size=(60, K)) + 0.01 * rng.normal(size=(N, K))
+    Y = L @ rng.normal(size=(60, M)) + 0.01 * rng.normal(size=(N, M))
+    return X, Y
+
+
+def nir_zscored() -> tuple[torch.Tensor, torch.Tensor]:
+    """nir/octane z-scored in float64 on the CPU, as the CLI reads them."""
+    from pls_tpu_torch.ops.stats import colwise_z_scores
+    from pls_tpu_torch.utils.io import read_matrix_file
+
+    return tuple(colwise_z_scores(torch.as_tensor(read_matrix_file(str(DATA / f)),
+                                                  dtype=torch.float64))
+                 for f in ("nir.csv", "octane.csv"))
+
+
+def phase_slice(deflate, dev, seed: int) -> dict:
+    """Phase 8.  Returns its walls and errors."""
+    from pls_tpu_torch.cv.bootstrap import bootstrap_coefficient_intervals
+    from pls_tpu_torch.models import nipals
+    from pls_tpu_torch.models.kernel_pls import fit
+    from pls_tpu_torch.models.predict import coefficients
+    from pls_tpu_torch.spectral import apply_chain, savgol, savgol_coeffs, snv
+    from pls_tpu_torch.tools.precision_at_scale import run as precision_run
+    from pls_tpu_torch.types import METHOD
+
+    out: dict = {}
+    X, Y = make_big(dev, seed)
+    X64, Y64 = X.double(), Y.double()
+
+    def k1_fit(method, A, **kw):
+        before = deflate.launches["deflate_f32"]
+        f, wall = event_wall(lambda: fit(X, Y, A, method, **kw))
+        return f, wall, deflate.launches["deflate_f32"] - before
+
+    # walls warm: kernel type 1 and SIMPLS take their second fit (the first
+    # after phase 7 emptied the allocator's cache runs cold); NIPALS, seconds
+    # long, runs once after them
+    for _ in range(2):
+        _, wall_k1, d = k1_fit(METHOD.KERNEL_TYPE1, SLICE_A)
+        check(d == SLICE_A, f"kernel type 1 fit: {d} K1 launches, expected {SLICE_A}")
+    out["kernel1_s"] = wall_k1
+    for method, A in ((METHOD.SIMPLS, SLICE_A), (METHOD.NIPALS, NIPALS_A)):
+        name = method.value
+        for _ in range(2 if method == METHOD.SIMPLS else 1):
+            f32, wall, d = k1_fit(method, A)
+            check(d == A, f"{name} f32 fit: {d} K1 launches, expected {A}")
+        iters = list(nipals.last_iterations) if method == METHOD.NIPALS else None
+        B32 = coefficients(f32)
+        check(tuple(B32.shape) == (BIG[1], 10) and bool(torch.isfinite(B32).all())
+              and tuple(f32.T.shape) == (BIG[0], A), f"{name} f32 fit: shapes / non-finite")
+        f64, wall64 = event_wall(lambda: fit(X64, Y64, A, method))
+        iters64 = list(nipals.last_iterations) if method == METHOD.NIPALS else None
+        e = rel_err(B32, coefficients(f64))
+        out[f"{name}_s"], out[f"{name}_f64_s"], out[f"{name}_coef_rel"] = wall, wall64, e
+        print(f"{name} 100k×5k×10 A={A} f32: wall {wall:.4f} s (CUDA events; kernel type 1 "
+              f"A={SLICE_A} {wall_k1:.4f} s), K1 launches {d}; vs {name} f64 (wall "
+              f"{wall64:.4f} s): coef rel {e:.3e} (bound {METHOD_COEF_RTOL})")
+        if iters is not None:
+            out["nipals_iterations"], out["nipals_f64_iterations"] = iters, iters64
+            print(f"nipals inner iterations per component: f32 {iters}; f64 {iters64}")
+        check(e <= METHOD_COEF_RTOL, f"{name} f32 fit: coef rel {e:.2e} > {METHOD_COEF_RTOL}")
+        del f32, f64, B32
+
+    # precision="dd": the float64 loop, on float64 and on float32 input
+    for method in (METHOD.KERNEL_TYPE1, METHOD.KERNEL_TYPE2):
+        B64, wall64 = event_wall(lambda: coefficients(fit(X64, Y64, SLICE_A, method)))
+        Bdd, wall_dd = event_wall(lambda: coefficients(fit(X64, Y64, SLICE_A, method,
+                                                           precision="dd")))
+        B32dd, wall32 = event_wall(lambda: coefficients(fit(X, Y, SLICE_A, method,
+                                                            precision="dd")))
+        e, e32 = rel_err(Bdd, B64), rel_err(B32dd, B64)
+        out[f"dd_{method.value}"] = {"rel": e, "rel_f32_state": e32, "s": wall_dd,
+                                     "f32_input_s": wall32, "f64_s": wall64}
+        print(f"dd {method.value} 100k×5k×10 A={SLICE_A}: wall {wall_dd:.4f} s (f32 input "
+              f"{wall32:.4f} s; plain f64 {wall64:.4f} s); vs f64 coef rel {e:.3e} (bound "
+              f"{DD_RTOL}), f32 state {e32:.3e} (bound {DD_F32_RTOL})")
+        check(B32dd.dtype == torch.float32 and Bdd.dtype == torch.float64, "dd: state dtypes")
+        check(e <= DD_RTOL and e32 <= DD_F32_RTOL, f"dd {method.value}: {e:.2e} / {e32:.2e}")
+    del X64, Y64
+    Xh, Yh = hard_data()
+    A_h = DD_STRESS[3]
+    Xs, Ys = (torch.as_tensor(v, device=dev) for v in (Xh, Yh))
+    X32, Y32 = Xs.float(), Ys.float()
+    for method in (METHOD.KERNEL_TYPE1, METHOD.KERNEL_TYPE2):
+        B64 = coefficients(fit(Xs, Ys, A_h, method))
+        (Bdd, wall) = event_wall(lambda: coefficients(fit(X32, Y32, A_h, method,
+                                                          precision="dd")))
+        e = rel_err(Bdd, B64)
+        e_plain = rel_err(coefficients(fit(X32, Y32, A_h, method)), B64)
+        out[f"dd_stress_{method.value}"] = {"rel": e, "plain_f32_rel": e_plain, "s": wall}
+        print(f"dd deep-A stress {Xh.shape[0]}×{Xh.shape[1]}×{Yh.shape[1]} A={A_h} "
+              f"{method.value}: vs f64 coef rel {e:.3e} (bound {DD_STRESS_RTOL}; plain f32 "
+              f"{e_plain:.3e}), wall {wall:.4f} s")
+        check(e <= DD_STRESS_RTOL, f"dd stress {method.value}: {e:.2e} > {DD_STRESS_RTOL}")
+
+    # compensated statistics
+    n, chunk, K, M = COMP_STATS
+    rec, wall = event_wall(lambda: precision_run(n, chunk, K, M, seed, dev))
+    last = rec["curves"][-1]
+    out["compensated_stats"] = {**last, "s": wall}
+    print(f"StatsAccumulator(compensated=True) {rec['n_total']} rows × K={K}: XX err "
+          f"{last['xx_err_comp']:.3e} (plain f32 {last['xx_err_plain']:.3e}; bound "
+          f"{COMP_XX_RTOL}), XY err {last['xy_err_comp']:.3e} (plain {last['xy_err_plain']:.3e}); "
+          f"wall {wall:.3f} s with the f64 truth and the plain accumulator")
+    check(last["xx_err_comp"] <= COMP_XX_RTOL and last["xy_err_comp"] <= COMP_XX_RTOL,
+          f"compensated statistics: XX {last['xx_err_comp']:.2e} XY {last['xy_err_comp']:.2e}")
+
+    # spectral preprocessing at full size
+    Xc, wall = event_wall(lambda: apply_chain(X, CHAIN))
+    e = rel_err(Xc, apply_chain(X.double(), CHAIN))
+    out["chain_s"], out["chain_rel"] = wall, e
+    print(f"apply_chain({CHAIN!r}) 100k×5k f32: wall {wall:.4f} s; vs f64 rel {e:.3e} "
+          f"(bound {CHAIN_RTOL})")
+    check(tuple(Xc.shape) == BIG and e <= CHAIN_RTOL, f"chain: {e:.2e} > {CHAIN_RTOL}")
+    # warm, and by part (CUDA events, median of 5 after one call)
+    coeffs = torch.as_tensor(savgol_coeffs(11, 2, 1), dtype=X.dtype, device=dev)[None, None, :]
+    parts = {"chain": lambda: apply_chain(X, CHAIN), "savgol:11:2:1": lambda: savgol(X, 11, 2, 1),
+             "its conv1d": lambda: torch.nn.functional.conv1d(X[:, None, :], coeffs),
+             "snv": lambda: snv(Xc)}
+    warm = {k: median_ms(fn, reps=5, warmup=1) for k, fn in parts.items()}
+    out["chain_warm_ms"] = warm
+    print(f"apply_chain warm, ms: {json.dumps(warm)}; a copy of X takes "
+          f"{median_ms(lambda: X.clone(), reps=5, warmup=1):.4f} ms")
+    del X, Y, Xc
+    torch.cuda.empty_cache()
+
+    # the CLI on nir: float32 on the card against float64 on the CPU
+    for extra in (["--method", "nipals"], ["--method", "simpls"], ["--preprocess", CHAIN]):
+        argv = [str(DATA / "nir.csv"), str(DATA / "octane.csv"), "10", *extra]
+        before = deflate.launches["deflate_f32"]
+        card, wall = event_wall(lambda: parse_report(run_cli(argv)))
+        d = deflate.launches["deflate_f32"] - before
+        cpu = parse_report(run_cli(argv + ["--device", "cpu"]))
+        errs = {"coef_rel": float(np.abs(card["coefficients"] - cpu["coefficients"]).max()
+                                  / np.abs(cpu["coefficients"]).max()),
+                "ev_abs": float(np.abs(card["ev"] - cpu["ev"]).max())}
+        for m in ("loo", "lso"):
+            errs[f"{m}_rmse_rel"] = float(np.abs(card[f"{m}_rmse"] - cpu[f"{m}_rmse"]).max()
+                                          / np.abs(cpu[f"{m}_rmse"]).max())
+            errs[f"{m}_opt_equal"] = bool(np.array_equal(card[f"{m}_opt"], cpu[f"{m}_opt"]))
+        out[" ".join(extra)] = {**errs, "s": wall, "launches": d}
+        print(f"cli nir {' '.join(extra)}: wall {wall:.3f} s, K1 launches {d}; f32 card vs "
+              f"f64 CPU {json.dumps(errs)}")
+        check(d == 10, f"cli nir {extra}: {d} K1 launches, expected 10")
+        coef_rtol = SIMPLS_NIR_COEF_RTOL if extra[-1] == "simpls" else COEF_RTOL
+        check(errs["coef_rel"] <= coef_rtol and errs["ev_abs"] <= EV_ATOL,
+              f"cli nir {extra}: {errs}")
+        for m in ("loo", "lso"):
+            check(errs[f"{m}_rmse_rel"] <= RMSE_RTOL and errs[f"{m}_opt_equal"],
+                  f"cli nir {extra}: {m} {errs}")
+
+    # the bootstrap on nir: float32 on the card against float64 on the CPU
+    Xn, Yn = nir_zscored()
+    Xg, Yg = Xn.float().to(dev), Yn.float().to(dev)
+    (lo, up, Bs), wall = event_wall(lambda: bootstrap_coefficient_intervals(
+        Xg, Yg, BOOT_A, BOOT_REPS, seed, x64=False))
+    lo64, up64, _ = bootstrap_coefficient_intervals(Xn, Yn, BOOT_A, BOOT_REPS, seed, x64=False)
+    e = max(rel_err(lo.cpu(), lo64), rel_err(up.cpu(), up64))
+    out["bootstrap_s"], out["bootstrap_rel"] = wall, e
+    print(f"bootstrap nir A={BOOT_A} {BOOT_REPS} replicates: wall {wall:.3f} s (CUDA events); "
+          f"intervals vs f64 on the CPU rel {e:.3e} (bound {BOOT_RTOL})")
+    check(tuple(Bs.shape) == (BOOT_REPS, 401, 1) and bool(torch.isfinite(Bs).all())
+          and bool((lo <= up).all()), "bootstrap: shapes / non-finite / lower > upper")
+    check(e <= BOOT_RTOL, f"bootstrap: {e:.2e} > {BOOT_RTOL}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -914,6 +1138,17 @@ def main() -> int:
     stats_launches = {**deflate.launches, **dv.launches}  # ... and ends here
     print(f"stats path launches: {stats_launches} (the path runs none of K1-K5); "
           f"{json.dumps(stats)}")
+
+    for counts in (deflate.launches, dv.launches):  # phase 8's run starts here
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    slice_out = phase_slice(deflate, dev, args.seed)
+    slice_launches = {**deflate.launches, **dv.launches}  # ... and ends here
+    print(f"phase 8 launches: {slice_launches}; {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(slice_out)}")
+    check(slice_launches["deflate_f32"] > 0, "phase 8 never launched K1")
+    launches["deflate_f32"] += slice_launches["deflate_f32"]
 
     check("jax" not in sys.modules and "pls_tpu" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": [

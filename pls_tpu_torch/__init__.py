@@ -9,10 +9,15 @@ kernel-PLS fit (types 1 and 2) with the per-component deflation pass as a
 hand-written CUDA kernel (ops/deflate.py, csrc/deflate.cu), prediction,
 LOO / LSO / new-data cross-validation, the Wilcoxon component selector,
 the PLSModel façade and the CLI (`python -m pls_tpu_torch X.csv Y.csv A`);
-and the statistics path: streaming XᵀX/XᵀY (models/streaming.py), fits
+the statistics path: streaming XᵀX/XᵀY (models/streaming.py), fits
 from the statistics, downdated LOO/LSO/k-fold and the one-pass k-fold CV
 (cv/), `.npy` ingest (utils/binio.py), and the JAX package's keyed random
-partitions without jax (utils/jax_prng.py).
+partitions without jax (utils/jax_prng.py); NIPALS and SIMPLS
+(models/nipals.py, models/simpls.py), the float64 precision modes
+"compensated" and "dd" (models/kernel_dd.py), spectral preprocessing
+(spectral.py, `--preprocess`), `ZScorer` (preprocess.py), the VIP /
+target-projection / selectivity-ratio diagnostics and the bootstrap
+(cv/bootstrap.py).
 """
 
 from pls_tpu_torch.types import (
@@ -20,7 +25,10 @@ from pls_tpu_torch.types import (
     KERNEL_TYPE2,
     METHOD,
     MSE,
+    NIPALS,
     RESS,
+    SIMPLS,
+    SPLS,
     VALIDATION_OUTPUT,
     PLSFit,
     Residual,
@@ -36,6 +44,7 @@ from pls_tpu_torch.models.kernel_pls import (
     fit_from_stats_blockdowndated,
     fit_from_stats_downdated,
 )
+from pls_tpu_torch.models.kernel_dd import fit_dd, fit_from_stats_dd
 from pls_tpu_torch.models.streaming import (
     FoldStatsAccumulator,
     StatsAccumulator,
@@ -55,8 +64,12 @@ from pls_tpu_torch.models.predict import (
     residuals,
     residuals_all_components,
     scores,
+    selectivity_ratio,
     sse,
+    target_projection,
+    vip,
 )
+from pls_tpu_torch.cv.bootstrap import bootstrap_coefficient_intervals, bootstrap_coefficients
 from pls_tpu_torch.cv.kfold import (
     KFoldOnePass,
     cv_group,
@@ -81,6 +94,19 @@ from pls_tpu_torch.cv.validation import (
 from pls_tpu_torch.model import PLSModel
 from pls_tpu_torch.utils.gcc_rng import GccRng
 from pls_tpu_torch.utils.io import read_matrix_file, stream_matrix_file
+from pls_tpu_torch.preprocess import ZScorer
+from pls_tpu_torch.spectral import (
+    SNV,
+    Detrend,
+    MSCorrection,
+    SavitzkyGolay,
+    detrend,
+    msc,
+    normalize,
+    savgol,
+    savgol_coeffs,
+    snv,
+)
 from pls_tpu_torch.utils.binio import (
     cv_kfold_npy,
     cv_repeated_kfold_npy,
@@ -93,16 +119,18 @@ from pls_tpu_torch.utils.binio import (
 )
 
 __all__ = [
-    "KERNEL_TYPE1", "KERNEL_TYPE2", "METHOD", "MSE", "RESS", "VALIDATION_OUTPUT",
+    "KERNEL_TYPE1", "KERNEL_TYPE2", "NIPALS", "SIMPLS", "SPLS", "METHOD", "MSE", "RESS",
+    "VALIDATION_OUTPUT",
     "PLSFit", "Residual", "default_float_dtype",
     "colwise_stdev", "colwise_z_scores", "sst", "z_scores", "normalcdf", "wilcoxon",
     "fit", "fit_folds", "fit_from_stats", "fit_from_stats_blockdowndated",
-    "fit_from_stats_downdated",
+    "fit_from_stats_downdated", "fit_dd", "fit_from_stats_dd",
     "FoldStatsAccumulator", "StatsAccumulator", "collect_moments", "fit_streaming",
     "fit_streaming_csv", "zscore_fold_stats", "zscore_stats",
     "coefficients", "coefficients_all_components", "explained_variance",
     "fitted_values", "loadings_x", "loadings_y", "residuals",
-    "residuals_all_components", "scores", "sse",
+    "residuals_all_components", "scores", "sse", "vip", "target_projection",
+    "selectivity_ratio", "bootstrap_coefficients", "bootstrap_coefficient_intervals",
     "KFoldOnePass", "cv_group", "cv_kfold", "cv_kfold_downdate", "cv_kfold_from_stats",
     "cv_kfold_onepass", "fold_residual_chunk", "kfold_assignments",
     "cv_loo", "cv_loo_downdate", "cv_loo_from_stats",
@@ -113,4 +141,6 @@ __all__ = [
     "read_matrix_file", "stream_matrix_file",
     "cv_kfold_npy", "cv_repeated_kfold_npy", "fit_streaming_npy", "fold_stats_from_npy",
     "npy_chunks", "stats_from_npy", "stream_npy", "write_npy_chunked",
+    "ZScorer", "snv", "msc", "MSCorrection", "savgol", "savgol_coeffs", "detrend", "normalize",
+    "SNV", "SavitzkyGolay", "Detrend",
 ]

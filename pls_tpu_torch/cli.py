@@ -6,11 +6,14 @@ Counterpart of `pls_tpu/cli.py` (reference main.cpp:10-44):
 
 - bad argv → the usage block on stderr, exit 100;
 - ragged CSV rows → the reference's exact message, exit 1; other bad input
-  (missing file, non-numeric field, unported option) → "Error: ...", exit 1;
-- z-score X and Y, fit kernel PLS type 1, print the model state, the
-  explained variance for 1..A components, LOO validation (RMSE), then LSO
-  validation (fraction 0.3, 10·N trials, the reference's default-seeded
-  mt19937 partitions); `--cv kfold|all` adds k-fold validation on the JAX
+  (missing file, non-numeric field, a bad --preprocess chain) →
+  "Error: ...", exit 1;
+- apply the `--preprocess` chain to raw X (spectral.apply_chain), z-score X
+  and Y, fit (kernel PLS type 1, or `--method kernel2|nipals|simpls`),
+  print the model state, the explained variance for 1..A components, LOO
+  validation (RMSE), then LSO validation (fraction 0.3, 10·N trials, the
+  reference's default-seeded mt19937 partitions); `--cv kfold|all` adds
+  k-fold validation on the JAX
   package's keyed fold labels, `--rng jax` its keyed LSO partitions;
 - all output on stderr; stdout stays empty.
 
@@ -31,8 +34,10 @@ USAGE = (
     "with no headers."
 )
 
-# a CLI option of the JAX package that waits for a later part of the port
-_NOT_PORTED_PREPROCESS = "--preprocess is not ported yet (ROADMAP queue 1 item 11)"
+# the JAX CLI's one option the port does not run yet
+_NOT_PORTED_BF16 = (
+    "--dtype bfloat16 is not ported yet (ROADMAP queue 1 item 11c: the pipeline with bf16 state)"
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,10 +50,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("x_file")
     p.add_argument("y_file")
     p.add_argument("num_components", type=int)
-    p.add_argument("--method", choices=["kernel1", "kernel2"], default="kernel1")
+    p.add_argument("--method", choices=["kernel1", "kernel2", "nipals", "simpls"],
+                   default="kernel1")
     p.add_argument(
-        "--dtype", choices=["float64", "float32"], default=None,
-        help="working precision (default: float64 on the CPU, float32 on CUDA)",
+        "--dtype", choices=["float64", "float32", "bfloat16"], default=None,
+        help="working precision (default: float64 on the CPU, float32 on CUDA); "
+        "bfloat16 is not ported yet",
     )
     p.add_argument(
         "--cv", choices=["both", "loo", "lso", "kfold", "all", "none"], default="both",
@@ -78,7 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="where the run goes: CUDA device 0 (default; exit 1 without a card) or the CPU",
     )
-    p.add_argument("--preprocess", default=None, metavar="CHAIN")
+    p.add_argument(
+        "--preprocess", default=None, metavar="CHAIN",
+        help="spectral preprocessing for X before z-scoring, e.g. 'savgol:11:2:1,snv' "
+        "(tokens: snv, msc, detrend[:order], savgol:w:p[:d[:delta]], norm[:l2])",
+    )
     p.add_argument(
         "--format", choices=["real", "eigen-complex"], default="real", dest="fmt",
         help="matrix rendering in the state dump: real numbers (default) or the "
@@ -96,8 +107,8 @@ def main(argv: list[str] | None = None) -> int:
             return 0
         print(USAGE, file=sys.stderr)
         return 100
-    if args.preprocess:
-        print(f"Error: {_NOT_PORTED_PREPROCESS}", file=sys.stderr)
+    if args.dtype == "bfloat16":
+        print(f"Error: {_NOT_PORTED_BF16}", file=sys.stderr)
         return 1
 
     import torch
@@ -131,13 +142,14 @@ def main(argv: list[str] | None = None) -> int:
         json_out=args.json,
         complex_format=(args.fmt == "eigen-complex"),
         x_storage=None if args.x_storage == "native" else args.x_storage,
+        preprocess=args.preprocess,
     )
     try:
         run_pipeline(cfg, device=device)
     except RaggedMatrixError as e:
         print(str(e), file=sys.stderr)
         return e.exit_code
-    except (OSError, ValueError, NotImplementedError) as e:
+    except (OSError, ValueError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
     return 0

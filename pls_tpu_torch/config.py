@@ -34,6 +34,7 @@ class PLSRunConfig:
     json_out: str | None = None
     complex_format: bool = False  # Eigen '(re,0)' tuples for byte diffing
     x_storage: str | None = None  # "bf16" = X stored narrow, f32 accumulation
+    preprocess: str | None = None  # spectral chain for raw X, e.g. "savgol:11:2:1,snv"
 
 
 def default_device() -> torch.device:
@@ -61,8 +62,8 @@ def resolve_device(device=None, like=None) -> torch.device:
 
 def run_pipeline(cfg: PLSRunConfig, *, file=None, device: torch.device | None = None) -> dict:
     """Run the reference CLI pipeline (reference main.cpp:21-41) under
-    `cfg`: read → z-score both → fit → print state + EV → LOO → LSO →
-    k-fold (`pls_tpu/config.py:40-129`).  Returns the report dict; raises
+    `cfg`: read → preprocess X → z-score both → fit → print state + EV →
+    LOO → LSO → k-fold (`pls_tpu/config.py:40-129`).  Returns the report dict; raises
     utils.io errors on bad input.  `device` None is `default_device()`:
     the card, or RuntimeError without one."""
     from pls_tpu_torch.cv.validation import optimal_num_components, print_validation, validation
@@ -80,11 +81,16 @@ def run_pipeline(cfg: PLSRunConfig, *, file=None, device: torch.device | None = 
         torch.backends.cudnn.allow_tf32 = False
     dtype = getattr(torch, cfg.dtype) if cfg.dtype else default_float_dtype(device)
 
-    def load(path):
-        return colwise_z_scores(torch.as_tensor(read_matrix_file(path), dtype=dtype, device=device))
+    def read(path):
+        return torch.as_tensor(read_matrix_file(path), dtype=dtype, device=device)
 
-    X = load(cfg.x_file)
-    Y = load(cfg.y_file)
+    X_raw = read(cfg.x_file)
+    if cfg.preprocess:
+        from pls_tpu_torch.spectral import apply_chain
+
+        X_raw = apply_chain(X_raw, cfg.preprocess)
+    X = colwise_z_scores(X_raw)
+    Y = colwise_z_scores(read(cfg.y_file))
     model = PLSModel(X, Y, cfg.method, cfg.num_components, x_storage=cfg.x_storage)
     model.print_state(file=file, complex_format=cfg.complex_format)
     model.print_explained_variance(X, Y, file=file)

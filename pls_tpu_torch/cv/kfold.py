@@ -26,8 +26,10 @@ import torch
 
 from pls_tpu_torch.cv.loo import global_stats
 from pls_tpu_torch.models.kernel_pls import (
+    _cast,
     _kernel2_loop,
     _prec_ctx,
+    _wide,
     fit_folds,
     fit_from_stats_blockdowndated,
 )
@@ -241,10 +243,12 @@ def cv_kfold_onepass(fold_stats, A: int, *, power_iters: int | None = None,
     XXf, XYf, YYf = fold_stats.XXf, fold_stats.XYf, fold_stats.YYf
     k, K, M = XYf.shape
     XX, XY = XXf.sum(0), XYf.sum(0)
-    fit = _kernel2_loop(
-        lambda r: r @ XX.mT - (XXf @ r[..., None])[..., 0],
-        XY[None] - XYf, A, power_iters, precision,
-    )
+    XXw, XXfw, XYw, XYfw = _wide(precision, XX, XXf, XY, XYf)  # float64 for compensated/dd
+    fit = _cast(_kernel2_loop(
+        lambda r: r @ XXw.mT - (XXfw @ r[..., None])[..., 0],
+        XYw[None] - XYfw, A, power_iters, precision,
+    ), XX.dtype)
+    del XXw, XXfw, XYw, XYfw  # the float64 copies (k·K² for XXf) before the products below
     with _prec_ctx("highest"):
         B = torch.cumsum(fit.R.mT[..., :, :, None] * fit.Q.mT[..., :, None, :], dim=1)  # (k, A, K, M)
         Bm = B.permute(0, 2, 1, 3).reshape(k, K, A * M)

@@ -13,6 +13,7 @@ API (reference → here):
                                            package's partitions), or a
                                            torch.Generator
   cv_LOO(downdate=True), cv_KFOLD        → `pls_tpu/model.py:202-255`
+  bootstrap_coefficient_intervals        → `pls_tpu/model.py:285-307`
   print_state / print_explained_variance → the same stderr tables
   save / load                            → the JAX package's .npz format
 """
@@ -259,6 +260,28 @@ class PLSModel:
             self._X, self._Y, self.A, test_fraction, num_trials, self._method,
             generator=generator, key=key, partitions=partitions, batch_size=batch_size,
             power_iters=self._power_iters, precision=self._precision,
+        )
+
+    def bootstrap_coefficient_intervals(
+        self,
+        num_replicates: int = 200,
+        *,
+        alpha: float = 0.05,
+        key=None,
+        comp: int | None = None,
+        batch_size: int | None = None,
+    ):
+        """Percentile bootstrap intervals for the coefficients of a `comp`
+        (default A) component fit by the model's method (cv/bootstrap.py;
+        `pls_tpu/model.py:285-307`).  `key`: a JAX key's data or an int
+        seed, None for key 0.  Returns (lower, upper, draws)."""
+        from pls_tpu_torch.cv.bootstrap import bootstrap_coefficient_intervals
+
+        self._require_data()
+        return bootstrap_coefficient_intervals(
+            self._X, self._Y, self.A if comp is None else comp, num_replicates,
+            0 if key is None else key, self._method, alpha=alpha, batch_size=batch_size,
+            precision=self._precision,
         )
 
     # ---------- reports (reference pls.cpp:551-580) ----------

@@ -19,6 +19,17 @@ Where the per-component (t, tt, p) pass runs:
     form for a CPU tensor or float64 X;
   - batched folds: batched products (`X @ r`), which the JAX package also
     leaves to XLA outside any kernel (traced fits never reach Pallas).
+
+`method` NIPALS and SIMPLS route to models/nipals.py and models/simpls.py,
+as `pls_tpu/models/kernel_pls.py:214-221` does.
+
+The precision modes "compensated" and "dd" run the component loop in
+float64 (`F64_PRECISIONS`), where the JAX package carries float32 pairs
+(`pls_tpu/ops/twofloat.py`, which exists only because the TPU has no
+float64): "compensated" on X as given, "dd" on X and Y rounded to float32
+first, as `pls_tpu/models/kernel_dd.py` takes them.  The state comes back
+in the fit's own dtype.  No kernel takes float64 X, so the passes of such
+a fit are torch products.
 """
 
 from __future__ import annotations
@@ -31,13 +42,9 @@ from pls_tpu_torch.ops.deflate import deflate_pass
 from pls_tpu_torch.ops.eigen import dominant_eigenvector
 from pls_tpu_torch.types import METHOD, PLSFit
 
-_NOT_PORTED_PRECISION = (
-    "precision={!r} is not ported yet (ROADMAP queue 1 item 9: "
-    "precision modes on native f64)"
-)
-_NOT_PORTED_METHOD = (
-    "{} is not ported yet (ROADMAP queue 1 item 11: public API and extensions)"
-)
+KERNEL_METHODS = (METHOD.KERNEL_TYPE1, METHOD.KERNEL_TYPE2)
+# the precision modes whose component loop runs in float64
+F64_PRECISIONS = ("compensated", "dd")
 
 
 # The JAX package hands `precision` to `jax.default_matmul_precision`
@@ -61,12 +68,13 @@ def _prec_ctx(precision: str | None):
     float32 products on a GPU.  None leaves the settings as they are.
     Float64 products and the CPU ignore the setting.  A name JAX refuses
     ("fastest", "HIGHEST") raises ValueError; so do JAX's dot-algorithm
-    preset names, which the port does not map."""
+    preset names, which the port does not map.  "compensated" and "dd"
+    (`F64_PRECISIONS`) set what "highest" sets."""
     if precision is None:
         yield
         return
-    if precision in ("compensated", "dd"):
-        raise NotImplementedError(_NOT_PORTED_PRECISION.format(precision))
+    if precision in F64_PRECISIONS:
+        precision = "highest"  # their products are float64, or full float32
     if precision not in _PRECISION_TF32:
         raise ValueError(f"unknown precision {precision!r} (use one of "
                          f"{sorted(_PRECISION_TF32)} or None)")
@@ -80,13 +88,58 @@ def _prec_ctx(precision: str | None):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def _check_method(method: METHOD, x_storage: str | None) -> None:
-    if method in (METHOD.NIPALS, METHOD.SIMPLS):
-        raise NotImplementedError(_NOT_PORTED_METHOD.format(method))
-    if method not in (METHOD.KERNEL_TYPE1, METHOD.KERNEL_TYPE2):
+def _check_method(method: METHOD, x_storage: str | None, precision: str | None) -> None:
+    """The JAX package's refusals (`pls_tpu/models/kernel_pls.py:164-184`),
+    with its messages."""
+    if method not in (*KERNEL_METHODS, METHOD.NIPALS, METHOD.SIMPLS):
         raise ValueError(f"unknown method {method}")
-    if x_storage is not None and x_storage not in ("bf16", "bfloat16"):
-        raise ValueError(f"unknown x_storage {x_storage!r} (use 'bf16')")
+    if x_storage is not None:
+        if x_storage not in ("bf16", "bfloat16"):
+            raise ValueError(f"unknown x_storage {x_storage!r} (use 'bf16')")
+        if method not in KERNEL_METHODS:
+            raise ValueError(
+                "x_storage='bf16' requires a kernel method (type 1/2); "
+                f"{method} does not implement the f32-accumulation policy"
+            )
+        if precision == "dd":
+            raise ValueError(
+                "precision='dd' carries full pair precision; x_storage='bf16' would defeat it"
+            )
+    if precision == "dd" and method not in KERNEL_METHODS:
+        # JAX hands "dd" to jax.default_matmul_precision there, which refuses it
+        raise ValueError(f"precision='dd' is for the kernel methods, not {method}")
+
+
+def _cast(fit: PLSFit, dtype: torch.dtype) -> PLSFit:
+    """The fit's state in `dtype` (the same tensors where it already is)."""
+    return PLSFit(
+        W=fit.W.to(dtype), P=fit.P.to(dtype), Q=fit.Q.to(dtype), R=fit.R.to(dtype),
+        T=fit.T.to(dtype), method=fit.method,
+    )
+
+
+def _state_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of a fit's state for X in `dtype`: float32 for bf16 X."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def _fit_method(X, Y, A, method, power_iters, precision) -> PLSFit:
+    """One fit, or a batch on a leading fold axis, of masked and weighted
+    X/Y (X possibly bf16) by `method`."""
+    if method == METHOD.NIPALS:
+        from pls_tpu_torch.models.nipals import fit_nipals
+
+        return fit_nipals(X, Y, A, precision=precision)
+    if method == METHOD.SIMPLS:
+        from pls_tpu_torch.models.simpls import fit_simpls
+
+        return fit_simpls(X, Y, A, power_iters=power_iters, precision=precision)
+    type1 = method == METHOD.KERNEL_TYPE1
+    if precision == "dd":
+        from pls_tpu_torch.models.kernel_dd import fit_dd
+
+        return fit_dd(X, Y, A, type1, power_iters=power_iters)
+    return _fit_kernel(X, Y, A, type1=type1, power_iters=power_iters, precision=precision)
 
 
 def fit(
@@ -106,6 +159,7 @@ def fit(
     Args:
       X: (N, K) predictors, centred/z-scored by the caller.
       Y: (N, M) or (N,) responses.
+      method: KERNEL_TYPE1 | KERNEL_TYPE2 | NIPALS | SIMPLS.
       row_mask: optional (N,) {0,1} mask; masked-out rows are excluded
         exactly (they become zero rows of X and Y).
       sample_weight: optional (N,) non-negative weights; rows are scaled by
@@ -114,12 +168,16 @@ def fit(
         M > 1 dominant eigenvector.
       precision: a JAX precision name (`_prec_ctx`): "highest" (float32
         products without TF32), "high"/"default" and their aliases (TF32),
-        or None (PyTorch's current settings).
+        or None (PyTorch's current settings); or, for the kernel methods,
+        "compensated" and "dd" (`F64_PRECISIONS`: a float64 component loop,
+        "dd" on X and Y rounded to float32).  NIPALS and SIMPLS read
+        "compensated" as "highest" and refuse "dd", as the JAX package does.
       x_storage: "bf16" stores X in bfloat16 after masking and weighting;
         every contraction accumulates in float32 and the model state is
-        float32.  Y is rounded to bf16 in XᵀY, as in the JAX package.
+        float32.  Y is rounded to bf16 in XᵀY, as in the JAX package.  Kernel
+        methods only, and not with "dd".
     """
-    _check_method(method, x_storage)
+    _check_method(method, x_storage, precision)
     X = X.contiguous()  # rows must be contiguous for the kernel (a no-op if they are)
     if Y.ndim == 1:
         Y = Y[:, None]
@@ -139,10 +197,7 @@ def fit(
         Y = Y * w
     if x_storage is not None:
         X = X.to(torch.bfloat16)
-    return _fit_kernel(
-        X, Y, A, type1=(method == METHOD.KERNEL_TYPE1),
-        power_iters=power_iters, precision=precision,
-    )
+    return _fit_method(X, Y, A, method, power_iters, precision)
 
 
 def fit_folds(
@@ -159,19 +214,18 @@ def fit_folds(
     """One fit per row of `row_masks` (F, N), batched on a leading fold
     axis: the returned tensors are (F, K, A), (F, M, A), ...  Fold f equals
     `fit(X, Y, A, method, row_mask=row_masks[f], ...)` up to summation
-    order.  With x_storage="bf16" the masked X is rounded to bf16 and the
-    batched products run on its float32 widening."""
-    _check_method(method, x_storage)
+    order.  A row of `row_masks` may also hold row weights, which multiply
+    X and Y as a mask does (the bootstrap's √counts).  With
+    x_storage="bf16" the masked X is rounded to bf16 and the batched
+    products run on its float32 widening."""
+    _check_method(method, x_storage, precision)
     if Y.ndim == 1:
         Y = Y[:, None]
     m = row_masks.to(X.dtype)[:, :, None]
     Xf = X[None] * m
     if x_storage is not None:
         Xf = Xf.to(torch.bfloat16)
-    return _fit_kernel(
-        Xf, Y[None] * m, A, type1=(method == METHOD.KERNEL_TYPE1),
-        power_iters=power_iters, precision=precision,
-    )
+    return _fit_method(Xf, Y[None] * m, A, method, power_iters, precision)
 
 
 def _t_tt_p(X: torch.Tensor, Xa: torch.Tensor, r: torch.Tensor):
@@ -197,8 +251,15 @@ def _fit_kernel(
       w /= ‖w‖ ;  r = w − Σ_{j<a}(pⱼᵀw) rⱼ
       type1: t = X r, tt = tᵀt, p = Xᵀt      type2: tt = rᵀ XX r, p = XX r
       p /= tt ;  q = XYᵀ r / tt ;  XY ← XY − (p qᵀ) tt
-    X is (N, K) or (F, N, K); Y is (N, M) or (F, N, M)."""
-    acc = torch.float32 if X.dtype == torch.bfloat16 else X.dtype
+    X is (N, K) or (F, N, K); Y is (N, M) or (F, N, M).  The precision
+    modes of `F64_PRECISIONS` run the loop on X and Y (rounded to X's
+    dtype, as XᵀY rounds them) widened to float64, and return the state in
+    X's state dtype."""
+    acc = _state_dtype(X.dtype)
+    if precision in F64_PRECISIONS and X.dtype != torch.float64:
+        wide = _fit_kernel(X.to(torch.float64), Y.to(X.dtype).to(torch.float64), A, type1,
+                           power_iters, precision)
+        return _cast(wide, acc)
     batch = X.shape[:-2]
     K = X.shape[-1]
     M = Y.shape[-1]
@@ -288,6 +349,14 @@ def _gram_matvec(XX: torch.Tensor):
     return lambda r: r @ XX.mT
 
 
+def _wide(precision: str | None, *tensors: torch.Tensor) -> list[torch.Tensor]:
+    """The tensors in the component loop's dtype: float64 under the
+    precision modes of `F64_PRECISIONS`, else as they are."""
+    if precision in F64_PRECISIONS:
+        return [t.to(torch.float64) for t in tensors]
+    return list(tensors)
+
+
 def fit_from_stats(
     XX: torch.Tensor,
     XY: torch.Tensor,
@@ -298,12 +367,20 @@ def fit_from_stats(
 ) -> PLSFit:
     """Kernel algorithm #2 fit from XX = XᵀX (K, K) and XY = XᵀY (K, M),
     never touching X: counterpart of `pls_tpu/models/kernel_pls.py:445-472`.
-    XX and XY may carry a leading fold axis (F, K, K) / (F, K, M)."""
+    XX and XY may carry a leading fold axis (F, K, K) / (F, K, M).
+    precision="dd" is `kernel_dd.fit_from_stats_dd` (pass the statistics'
+    lo parts there); "compensated" runs the loop in float64."""
+    if precision == "dd":
+        from pls_tpu_torch.models.kernel_dd import fit_from_stats_dd
+
+        return fit_from_stats_dd(XX, XY, A, power_iters=power_iters)
+    out = XX.dtype
+    XX, XY = _wide(precision, XX, XY)
     if XX.ndim == 2:
-        return _kernel2_loop(_gram_matvec(XX), XY, A, power_iters, precision)
-    return _kernel2_loop(
-        lambda r: (XX @ r[..., None])[..., 0], XY, A, power_iters, precision
-    )
+        fit = _kernel2_loop(_gram_matvec(XX), XY, A, power_iters, precision)
+    else:
+        fit = _kernel2_loop(lambda r: (XX @ r[..., None])[..., 0], XY, A, power_iters, precision)
+    return _cast(fit, out)
 
 
 def fit_from_stats_downdated(
@@ -319,14 +396,17 @@ def fit_from_stats_downdated(
     """`fit_from_stats(XX − xxᵀ, XY − xyᵀ, A)` with the rank-1 downdate
     inside the matvec, XX r − x (xᵀr): counterpart of
     `pls_tpu/models/kernel_pls.py:553-572`.  x (K,) / y (M,), or (F, K) /
-    (F, M) for F LOO folds at once against the one shared XX."""
+    (F, M) for F LOO folds at once against the one shared XX.  Both modes
+    of `F64_PRECISIONS` run the loop in float64."""
     if y.ndim == x.ndim - 1:
         y = y[..., None]
+    out = XX.dtype
+    XX, XY, x, y = _wide(precision, XX, XY, x, y)
     XYi = XY - x[..., :, None] * y[..., None, :]
     gram = _gram_matvec(XX)
-    return _kernel2_loop(
+    return _cast(_kernel2_loop(
         lambda r: gram(r) - x * (x * r).sum(-1, keepdim=True), XYi, A, power_iters, precision
-    )
+    ), out)
 
 
 def fit_from_stats_blockdowndated(
@@ -345,7 +425,10 @@ def fit_from_stats_blockdowndated(
     (F, Nf, K) / (F, Nf, M) for F folds at once; zero rows of Xf are exact
     padding.  A bfloat16 Xf multiplies in float32 after r, Yf and Xf r are
     rounded to bfloat16, as the JAX package's bf16 operands with float32
-    accumulation (a bf16 product is exact in float32)."""
+    accumulation (a bf16 product is exact in float32).  Both modes of
+    `F64_PRECISIONS` run the loop, and these products, in float64."""
+    out = XX.dtype
+    XX, XY, Yf = _wide(precision, XX, XY, Yf)
     acc = XX.dtype
     if Yf.ndim == Xf.ndim - 1:
         Yf = Yf[..., None]
@@ -363,4 +446,4 @@ def fit_from_stats_blockdowndated(
         tr = (Xa @ rnd(r)[..., None])[..., 0]
         return gram(r) - (Xa.mT @ rnd(tr)[..., None])[..., 0]
 
-    return _kernel2_loop(matvec, XYf, A, power_iters, precision)
+    return _cast(_kernel2_loop(matvec, XYf, A, power_iters, precision), out)

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from pls_tpu_torch.config import resolve_device
-from pls_tpu_torch.models.kernel_pls import _NOT_PORTED_PRECISION, _prec_ctx, fit_from_stats
+from pls_tpu_torch.models.kernel_pls import _prec_ctx, fit_from_stats
 from pls_tpu_torch.types import PLSFit
 
 _BF16_NAMES = ("bf16", "bfloat16")
@@ -66,8 +66,17 @@ class StatsAccumulator:
     """XᵀX, XᵀY, YᵀY, the column sums and the row count over data chunks:
     counterpart of `pls_tpu/models/streaming.py:89-221`.
 
-    compensated=True is not ported: it raises NotImplementedError (ROADMAP
-    queue 1 item 9 brings it as float64 accumulators)."""
+    compensated=True keeps XᵀX and XᵀY in float64 accumulators, each
+    chunk's product formed in float64 (the JAX package adds float32 chunk
+    products into float32 pairs, `pls_tpu/ops/twofloat.py`, because the TPU
+    has no float64).  It exposes the JAX package's pair fields: `XX`/`XY`
+    are the float64 sums rounded to `dtype` (the hi parts) and `XXe`/`XYe`
+    the rest rounded to `dtype` (the lo parts), so XX + XXe reads as the
+    JAX package's tools read it, and `kernel_dd.fit_from_stats_dd(XX, XY,
+    A, XX_lo=XXe, XY_lo=XYe)` takes them.  `fit` reads the hi parts, as the
+    JAX package's does.  Compensated statistics merge only with
+    compensated ones, and exclude x_storage="bf16" (the JAX rules and
+    messages)."""
 
     K: int
     M: int
@@ -81,12 +90,14 @@ class StatsAccumulator:
     YY: torch.Tensor = field(init=False)
     sx: torch.Tensor = field(init=False)
     sy: torch.Tensor = field(init=False)
+    XXe: torch.Tensor = field(init=False)
+    XYe: torch.Tensor = field(init=False)
     n: int = field(init=False, default=0)
 
     def __post_init__(self):
         _check_storage(self.x_storage)
-        if self.compensated:
-            raise NotImplementedError(_NOT_PORTED_PRECISION.format("compensated"))
+        if self.x_storage is not None and self.compensated:
+            raise ValueError("x_storage='bf16' and compensated are mutually exclusive")
         self.device = resolve_device(self.device)
         z = dict(dtype=self.dtype, device=self.device)
         self.XX = torch.zeros((self.K, self.K), **z)
@@ -94,6 +105,20 @@ class StatsAccumulator:
         self.YY = torch.zeros((self.M, self.M), **z)
         self.sx = torch.zeros((self.K,), **z)
         self.sy = torch.zeros((self.M,), **z)
+        # the lo parts and the float64 sums exist only in compensated mode
+        # (a K×K float64 buffer is 800 MB at K = 10 000)
+        self.XXe = torch.zeros_like(self.XX) if self.compensated else torch.zeros(0, **z)
+        self.XYe = torch.zeros_like(self.XY) if self.compensated else torch.zeros(0, **z)
+        if self.compensated:
+            self._XX64 = torch.zeros((self.K, self.K), dtype=torch.float64, device=self.device)
+            self._XY64 = torch.zeros((self.K, self.M), dtype=torch.float64, device=self.device)
+
+    def _split(self) -> None:
+        """The hi and lo parts of the float64 sums in `dtype`."""
+        for name, acc64 in (("XX", self._XX64), ("XY", self._XY64)):
+            hi = acc64.to(self.dtype)
+            setattr(self, name, hi)
+            setattr(self, name + "e", (acc64 - hi.to(torch.float64)).to(self.dtype))
 
     def update(self, X_chunk, Y_chunk) -> "StatsAccumulator":
         acc = self.dtype
@@ -105,9 +130,17 @@ class StatsAccumulator:
         else:
             X = X.to(acc)
             Y = Y.to(acc)
-        with _prec_ctx(self.precision):
-            self.XX.addmm_(X.mT, X)
-            self.XY.addmm_(X.mT, Y)
+        # compensated pins full float32 products, as the JAX package pins HIGHEST
+        with _prec_ctx("highest" if self.compensated else self.precision):
+            if self.compensated:
+                X64, Y64 = X.to(torch.float64), Y.to(torch.float64)
+                self._XX64.addmm_(X64.mT, X64)
+                self._XY64.addmm_(X64.mT, Y64)
+                del X64, Y64
+                self._split()
+            else:
+                self.XX.addmm_(X.mT, X)
+                self.XY.addmm_(X.mT, Y)
             self.YY.addmm_(Y.mT, Y)
         self.sx += X.sum(0)
         self.sy += Y.sum(0)
@@ -116,8 +149,15 @@ class StatsAccumulator:
 
     def merge(self, other: "StatsAccumulator") -> "StatsAccumulator":
         """Add another chunk set's statistics (a psum's counterpart)."""
-        self.XX = self.XX + other.XX
-        self.XY = self.XY + other.XY
+        if self.compensated != other.compensated:
+            raise ValueError("cannot merge compensated and plain accumulators")
+        if self.compensated:
+            self._XX64 = self._XX64 + other._XX64
+            self._XY64 = self._XY64 + other._XY64
+            self._split()
+        else:
+            self.XX = self.XX + other.XX
+            self.XY = self.XY + other.XY
         self.YY = self.YY + other.YY
         self.sx = self.sx + other.sx
         self.sy = self.sy + other.sy

@@ -18,8 +18,10 @@ class METHOD(enum.Enum):
     """PLS fitting algorithm (same values as `pls_tpu.METHOD`).
 
     KERNEL_TYPE1 / KERNEL_TYPE2 are the Dayal–MacGregor improved kernel
-    algorithms.  NIPALS, SIMPLS and SPLS exist so that models saved by the
-    JAX package keep their labels; fitting them is not ported yet.
+    algorithms; NIPALS the classical X-deflating algorithm
+    (models/nipals.py); SIMPLS de Jong's (models/simpls.py).  SPLS tags the
+    fits of the JAX package's sparse-PLS extension, so that models it
+    saved keep their label; sparse fitting is not ported.
     """
 
     KERNEL_TYPE1 = "kernel1"
@@ -31,6 +33,9 @@ class METHOD(enum.Enum):
 
 KERNEL_TYPE1 = METHOD.KERNEL_TYPE1
 KERNEL_TYPE2 = METHOD.KERNEL_TYPE2
+NIPALS = METHOD.NIPALS
+SIMPLS = METHOD.SIMPLS
+SPLS = METHOD.SPLS
 
 
 class VALIDATION_OUTPUT(enum.Enum):

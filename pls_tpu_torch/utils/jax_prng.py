@@ -21,6 +21,12 @@ release's default), the threefry2x32 implementation:
   - `permutation(key, n_or_array)`: `jax/_src/random.py::_shuffle`,
     ceil(3·ln n / ln(2³²−1)) rounds (one up to n = 1625, two from
     1626) of a stable sort on fresh 32-bit keys.
+  - `randint(key, shape, minval, maxval, dtype)`: `_randint`, for int32
+    (jax's default integer without x64) and int64 (its default with x64):
+    two draws of nbits from the two halves of `split(key)`, combined as
+    (hi mod span)·(2^nbits mod span) + (lo mod span), mod span, in
+    unsigned nbits arithmetic.  64-bit draws are the hash pair as
+    (b0 << 32) | b1.
 
 A key is a (2,) uint32 array, the raw data of a jax key
 (`jax.random.key_data`).
@@ -88,8 +94,53 @@ def fold_in(k, data: int) -> np.ndarray:
 def random_bits32(k, n: int) -> np.ndarray:
     """(n,) uint32: `jax.random.bits(k, (n,), uint32)`; (..., n) for a
     batch of keys (..., 2)."""
+    return _random_bits(k, n, 32)
+
+
+def _random_bits(k, n: int, nbits: int) -> np.ndarray:
+    """(..., n) unsigned draws of `nbits` (32 or 64) per key (..., 2):
+    `_threefry_random_bits_partitionable`."""
     b0, b1 = threefry2x32(_as_key(k)[..., None, :], *_counts(n))
-    return b0 ^ b1
+    if nbits == 32:
+        return b0 ^ b1
+    return (b0.astype(np.uint64) << np.uint64(32)) | b1.astype(np.uint64)
+
+
+def randint(k, shape, minval, maxval, dtype=np.int32) -> np.ndarray:
+    """`jax.random.randint(k, shape, minval, maxval, dtype)`: values in
+    [minval, maxval) of int32 or int64 (pass int64 for what jax draws with
+    x64 enabled, its default there); a batch of keys (..., 2) draws one
+    array per key, (..., *shape), as `jax.vmap` over the keys does."""
+    dtype = np.dtype(dtype)
+    if dtype not in (np.dtype(np.int32), np.dtype(np.int64)):
+        raise TypeError(f"randint takes int32 or int64, got {dtype}")
+    shape = (int(shape),) if np.ndim(shape) == 0 else tuple(int(d) for d in shape)
+    nbits = dtype.itemsize * 8
+    udt = np.uint32 if nbits == 32 else np.uint64
+    info = np.iinfo(dtype)
+    lo_v, hi_v = np.asarray(minval, np.int64), np.asarray(maxval, np.int64)
+    out_of_range = hi_v > info.max
+    lo_v, hi_v = np.clip(lo_v, info.min, info.max), np.clip(hi_v, info.min, info.max)
+    k = _as_key(k)
+    both = split(k)
+    n = int(np.prod(shape))
+    higher = _random_bits(both[..., 0, :], n, nbits).reshape(k.shape[:-1] + shape)
+    lower = _random_bits(both[..., 1, :], n, nbits).reshape(k.shape[:-1] + shape)
+    with np.errstate(over="ignore"):
+        span = (hi_v - lo_v).astype(dtype).astype(udt)
+        # span 1 where maxval <= minval (minval is drawn); one more where
+        # maxval was past the dtype's range (2^nbits wraps to 0: no remainder)
+        span = np.where(hi_v <= lo_v, udt(1), span).astype(udt)
+        span = np.where(out_of_range & (hi_v > lo_v), span + udt(1), span).astype(udt)
+        # 2^nbits mod span, as ((2^(nbits/2) mod span)² mod span); XLA's
+        # remainder by 0 leaves its operand, so a span of 0 (2^nbits
+        # wrapped) gives a multiplier of 2^nbits = 0 and the low draw as is
+        safe = np.where(span == 0, udt(1), span).astype(udt)
+        mult = udt(1 << (nbits // 2)) % safe
+        mult = np.where(span == 0, udt(0), (mult * mult) % safe).astype(udt)
+        offset = (higher % safe) * mult + (lower % safe)
+        offset = np.where(span == 0, lower, offset % safe).astype(udt)
+        return (lo_v.astype(dtype) + offset.astype(dtype)).astype(dtype)
 
 
 def shuffle_rounds(n: int) -> int:

@@ -5,10 +5,9 @@ same module path (`pls_tpu.utils.binio.stats_from_npy` ->
 `pls_tpu_torch.utils.binio.stats_from_npy`) must resolve on
 `pls_tpu_torch` itself, as the same object.  The names the port does not
 implement yet are listed here as known gaps, by the JAX module they live
-in: ROADMAP queue 1 names each of them (item 9 for `kernel_dd`, item 11a
-for NIPALS/SIMPLS, the spectral preprocessing, bootstrap and the
-`predict` diagnostics, item 11b for the rest).  A gap that the port fills
-must leave this list, so the list cannot go stale.
+in: ROADMAP queue 1 names each of them (item 11b, the rest of the public
+API, for all that are left).  A gap that the port fills must leave this
+list, so the list cannot go stale.
 """
 
 import importlib
@@ -20,11 +19,11 @@ import pls_tpu_torch
 
 # whole JAX modules the port has no counterpart of yet
 GAP_MODULES = {
-    "pls_tpu.cv.bootstrap", "pls_tpu.cv.conformal", "pls_tpu.cv.inference",
-    "pls_tpu.estimator", "pls_tpu.export", "pls_tpu.preprocess", "pls_tpu.sampling",
-    "pls_tpu.select", "pls_tpu.spectral", "pls_tpu.transfer", "pls_tpu.tune",
+    "pls_tpu.cv.conformal", "pls_tpu.cv.inference",
+    "pls_tpu.estimator", "pls_tpu.export", "pls_tpu.sampling",
+    "pls_tpu.select", "pls_tpu.transfer", "pls_tpu.tune",
     "pls_tpu.utils.checkpoint",
-    "pls_tpu.models.crossdecomp", "pls_tpu.models.diagnostics", "pls_tpu.models.kernel_dd",
+    "pls_tpu.models.crossdecomp", "pls_tpu.models.diagnostics",
     "pls_tpu.models.kpls", "pls_tpu.models.missing", "pls_tpu.models.multiblock",
     "pls_tpu.models.npls", "pls_tpu.models.o2pls", "pls_tpu.models.opls",
     "pls_tpu.models.oplsda", "pls_tpu.models.plscox", "pls_tpu.models.plsda",
@@ -33,8 +32,6 @@ GAP_MODULES = {
 }
 # names missing from modules the port has
 GAP_NAMES = {
-    "NIPALS", "SIMPLS", "SPLS",  # pls_tpu.types: the methods of item 11a
-    "vip", "target_projection", "selectivity_ratio",  # pls_tpu.models.predict
     "__version__",  # package metadata: the port's version is its repo's
 }
 

@@ -230,13 +230,20 @@ def test_precision_name_jax_refuses_raises(precision):
 
 
 def test_unported_options_raise():
-    X, Y = (torch.from_numpy(v) for v in _data())
+    """The options once left for later (NIPALS, SIMPLS, "compensated",
+    "dd") now fit as the JAX package does; what it refuses still raises."""
+    X, Y = _data()
+    Xj, Yj = jnp.asarray(X), jnp.asarray(Y)
+    X, Y = torch.from_numpy(X), torch.from_numpy(Y)
     for method in (tt.METHOD.NIPALS, tt.METHOD.SIMPLS):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-            tt.fit(X, Y, 2, method)
+        f = tt.fit(X, Y, 2, method)
+        assert f.method == method
+        _assert_fits_equal(f, jax_kernel_pls.fit(Xj, Yj, 2, pt.METHOD(method.value)))
     for precision in ("compensated", "dd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-            tt.fit(X, Y, 2, precision=precision)
+        f = tt.fit(X, Y, 2, precision=precision)
+        ref = jax_kernel_pls.fit(Xj, Yj, 2, precision=precision)
+        np.testing.assert_allclose(tt.coefficients(f).numpy(), np.asarray(pt.coefficients(ref)),
+                                   atol=1e-6)  # "dd": JAX's float32 pairs
     with pytest.raises(ValueError):
         tt.fit(X, Y, 2, precision="bogus")
     with pytest.raises(ValueError):

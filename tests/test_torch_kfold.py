@@ -100,8 +100,9 @@ def test_fit_from_stats_batched_folds_and_bf16():
                                             jnp.asarray(X32[7:15], jnp.bfloat16),
                                             jnp.asarray(Y32[7:15]), 3)
     _close(tt.coefficients(mine), pt.coefficients(ref), 1e-5)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tt.fit_from_stats(XX, XY, 2, precision="dd")
+    mine = tt.fit_from_stats(XX, XY, 2, precision="dd")  # kernel_dd.fit_from_stats_dd
+    ref = jkp.fit_from_stats(*_j(XX.numpy(), XY.numpy()), 2, precision="dd")
+    _close(tt.coefficients(mine), pt.coefficients(ref), 1e-6)
 
 
 def test_cv_loo_downdate_and_from_stats():

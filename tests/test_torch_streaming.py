@@ -81,8 +81,11 @@ def test_stats_accumulator_bf16_storage():
 
 
 def test_stats_accumulator_options():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ts.StatsAccumulator(3, 1, compensated=True, device="cpu")
+    acc = ts.StatsAccumulator(3, 1, compensated=True, device="cpu")
+    acc.update(np.ones((2, 3), np.float32), np.ones(2, np.float32))
+    assert acc.compensated and acc.XXe.shape == (3, 3) and float(acc.XX[0, 0]) == 2.0
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ts.StatsAccumulator(3, 1, compensated=True, x_storage="bf16", device="cpu")
     with pytest.raises(ValueError, match="x_storage"):
         ts.StatsAccumulator(3, 1, x_storage="fp8", device="cpu")
     acc = ts.StatsAccumulator(4, 1, torch.float64, device="cpu").update(np.ones((3, 4)), np.ones(3))
