@@ -87,12 +87,30 @@ Phases, each of which fails the run:
      SIMPLS's coefficients, SIMPLS_NIR_COEF_RTOL; equal component counts,
      A launches of K1 each); the bootstrap on nir (A = 10, 200
      replicates, int32 draws) against the same call in float64 on the CPU
-     (5e-3), with its wall.
+     (5e-3), with its wall;
+  9. `--dtype bfloat16` and the scikit-learn entry point: the CLI in bf16
+     on toy and nir (K2 launches, A each), every table within 1e-3 of the
+     port's bf16 run on the CPU (BF16_SAME_ARITH_RTOL, below d_jax) with
+     the same component choices, and within 2·d_jax of the f64 goldens
+     (BF16_D_JAX); at 100000×5000×10, A = 20 (make_big): PLSRegressor
+     fit/predict/score (20 K1 launches), with x_storage="bf16" (20 K2),
+     build_monitor/check, export_c into build/ and load_model_c,
+     predict_interval "cv+" (10 folds, 220 K1) and "split" (20 K1),
+     RobustPLSRegressor (220 K1), PLSGLMClassifier on a noisy binary
+     response (n_irls = 10, 200 K1), each against the same call in float64
+     on the card (1e-3; 5e-3 for the IRLS fits), with CUDA-event walls and
+     the phase's parts; grid_search_cv over n_components 1..20, 5 folds,
+     at this size (one un-batched fit a fold, K1) and at 2000×500 (one
+     batched fit), against un-batched float32 fits on each fold's own
+     scaled rows (1e-4);
+     then SPLS, OPLS, KPLS, PLSCanonical, CCA and PLSSVD at K = 5000, M =
+     10 and the rows of FAMILIES, each against float64 (5e-3).
 
 The K1/K2 launch counts are set to 0 just before phase 3 and read just
 after phase 4; the K3-K5 counts just before and after phase 6; all of
 them just before and after phase 7, where they stay 0, and just before
-and after phase 8, whose K1 launches join phase 3-4's in the record.  The last
+and after phases 8 and 9, whose K1 (and phase 9's K2) launches join phase
+3-4's in the record.  The last
 two lines of stdout are the kernels' JSON record (K1-K5; ms is the
 back-to-back time per call, K1/K2 at 100000×5000, K3-K5 of the best
 variant at 65536×2048 by the sweep's chain slope, timed again back to
@@ -193,6 +211,40 @@ SIMPLS_NIR_COEF_RTOL = 0.1
 CHAIN = "savgol:11:2:1,snv"
 CHAIN_RTOL = 1e-5
 BOOT_A, BOOT_REPS, BOOT_RTOL = 10, 200, 5e-3
+
+# phase 9: --dtype bfloat16 and the scikit-learn entry point.  The bf16
+# CLI's bounds per table: d_jax, the JAX package's own bf16 run against
+# float64, measured on the CPU (tests/test_torch_cli.py's D_JAX, which a
+# test holds equal to this); the card's run must lie within d_jax of the
+# port's bf16 run on the CPU and within 2·d_jax of the f64 goldens.
+BF16_D_JAX = {
+    ("toy", "W"): 0.05674, ("toy", "P"): 0.05936, ("toy", "Q"): 0.01362, ("toy", "R"): 0.06734,
+    ("toy", "coefficients"): 0.06660, ("toy", "ev"): 0.01648, ("toy", "loo_rmse"): 0.01452,
+    ("toy", "lso_rmse"): 0.01966,
+    ("nir", "W"): 0.8960, ("nir", "P"): 0.9069, ("nir", "Q"): 0.7100, ("nir", "R"): 0.6181,
+    ("nir", "coefficients"): 0.6566, ("nir", "ev"): 0.02149, ("nir", "loo_rmse"): 0.08941,
+    ("nir", "lso_rmse"): 0.06341,
+}
+# The card's bf16 run follows the port's CPU bf16 run's arithmetic (bf16
+# data, float32 state, t kept float32 in the pass) and differs from it only
+# in the order of float32 sums: every table within this of it, in every
+# component (the CPU run against the JAX package's Pallas kernel in
+# interpret mode: 7.6e-5 at most; tests/test_torch_cli.py's
+# SAME_ARITH_RTOL, which a test holds equal to this)
+BF16_SAME_ARITH_RTOL = 1e-3
+EST_A = 20  # BASELINE.json's "Synthetic 100k×5k X, 10 Y, 20 components"
+EST_RTOL = 1e-3  # float32 estimator against the same call in float64 (FIT_COEF_RTOL)
+IRLS_RTOL = 5e-3  # the IRLS fits, whose reweightings compound the rounding (METHOD_COEF_RTOL)
+N_NEW = 256  # rows the intervals and the monitor's check are asked for
+GRID_FOLDS, GRID_RTOL = 5, 1e-4  # grid search against its folds' un-batched fits
+GRID_SMALL = (2_000, 500)  # a size whose five folds' copies of X make one batch
+# the families whose cost grows past the width, at K = 5000, M = 10: rows
+# and components.  KPLS's Gram matrix is N² (1.6 GB in float32 at 20 000);
+# CCA takes two pseudo-inverses (an SVD of the N×K block) per component
+FAMILIES = {"SPLSRegressor": (100_000, 5), "OPLSRegressor": (100_000, 3),
+            "KPLSRegressor": (20_000, 5), "PLSCanonical": (100_000, 3), "CCA": (10_000, 2),
+            "PLSSVD": (100_000, 5)}
+FAMILY_RTOL = 5e-3  # float32 against float64 of the same call (METHOD_COEF_RTOL)
 
 # (kernel name, its source in pls_tpu_torch/csrc, the TPU kernel it
 # replaces, the launch counters that are its launches)
@@ -1086,6 +1138,301 @@ def phase_slice(deflate, dev, seed: int) -> dict:
     return out
 
 
+def table_dist(a: np.ndarray, b: np.ndarray, state: bool) -> float:
+    """max |a − b| / max |b|, state columns sign-aligned."""
+    if state:
+        s = np.sign(np.sum(a * b, axis=0))
+        s[s == 0] = 1
+        a = a * s
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def np_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def phase_bf16_cli(deflate) -> dict:
+    """Phase 9, part 1: `--dtype bfloat16` on toy and nir on the card, held
+    to the port's bf16 run on the CPU and to the f64 goldens."""
+    out = {}
+    for name, xf, yf, A in [("toy", "toyX.csv", "toyY.csv", 2),
+                            ("nir", "nir.csv", "octane.csv", 10)]:
+        argv = [str(DATA / xf), str(DATA / yf), str(A), "--dtype", "bfloat16"]
+        before = dict(deflate.launches)
+        card, wall = event_wall(lambda: parse_report(run_cli(argv)))
+        d16 = deflate.launches["deflate_bf16"] - before["deflate_bf16"]
+        d32 = deflate.launches["deflate_f32"] - before["deflate_f32"]
+        cpu = parse_report(run_cli(argv + ["--device", "cpu"]))
+        f64 = parse_report((GOLDEN / f"{name}_cli_stderr.txt").read_text())
+        errs, bad = {}, []
+        for table in ("W", "P", "Q", "R", "coefficients", "ev", "loo_rmse", "lso_rmse"):
+            state = table in ("W", "P", "Q", "R", "coefficients")
+            bound = BF16_D_JAX[(name, table)]
+            e_cpu = table_dist(card[table], cpu[table], state)
+            e_f64 = table_dist(card[table], f64[table], state)
+            errs[table] = {"vs_cpu_bf16": round(e_cpu, 6), "vs_f64": round(e_f64, 6),
+                           "d_jax": bound}
+            if not (e_cpu <= min(bound, BF16_SAME_ARITH_RTOL) and e_f64 <= 2 * bound):
+                bad.append(table)
+        opt = {m: [card[m].tolist(), cpu[m].tolist()] for m in ("loo_opt", "lso_opt")}
+        out[name] = {"s": wall, "launches_bf16": d16, "errors": errs, "optimal_card_cpu": opt}
+        print(f"bf16 cli {name} A={A}: wall {wall:.3f} s, K2 launches {d16} (K1 {d32}); "
+              f"card vs the port's CPU bf16 run (bound {BF16_SAME_ARITH_RTOL}, within d_jax) "
+              f"and vs f64 (bound 2·d_jax): {json.dumps(errs)}; optimal components (card, cpu) "
+              f"{opt}")
+        check(not bad, f"bf16 cli {name}: {bad} outside their bounds")
+        check(all(a == b for a, b in opt.values()), f"bf16 cli {name}: optimal components {opt}")
+        check(d16 == A and d32 == 0, f"bf16 cli {name}: {d16} K2 launches, expected {A}")
+    return out
+
+
+def grid_reference(X, Y, splits, A) -> np.ndarray:
+    """(F, A) fold RMSE of `grid_search_cv`, from one un-batched fit per
+    fold on its training rows alone (K1 on the card), each fold z-scored
+    by a ZScorer of those rows: no code of tune.py."""
+    from pls_tpu_torch.models.kernel_pls import fit
+    from pls_tpu_torch.models.predict import residuals_all_components
+    from pls_tpu_torch.preprocess import ZScorer
+
+    rmse = []
+    for train, test in splits:
+        tr, te = (torch.as_tensor(i, device=X.device) for i in (train, test))
+        sx, sy = ZScorer.fit(X[tr]), ZScorer.fit(Y[tr])
+        f = fit(sx.transform(X[tr]), sy.transform(Y[tr]), A)
+        err = residuals_all_components(f, sx.transform(X[te]), sy.transform(Y[te])) * sy.stdev
+        rmse.append(torch.sqrt((err * err).mean((0, 2))).cpu().numpy())
+    return np.stack(rmse)
+
+
+def phase_estimators(deflate, dev, seed: int) -> dict:
+    """Phase 9, parts 2-3: the estimators at 100000×5000×10, A = 20, and the
+    families whose cost grows past the width.  Returns walls and errors."""
+    import pls_tpu_torch as tt
+    from pls_tpu_torch.models import crossdecomp
+    from pls_tpu_torch.tune import kfold_split
+
+    out: dict = {}
+    laps, t_last = {}, [time.perf_counter()]
+
+    def lap(name):  # host seconds of each part of the phase
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        laps[name] = round(now - t_last[0], 3)
+        t_last[0] = now
+
+    X, Y = make_big(dev, seed)
+    X64, Y64 = X.double(), Y.double()
+    Xn, Xn64 = X[:N_NEW], X64[:N_NEW]
+    lap("data")
+
+    def launched(fn):
+        before = dict(deflate.launches)
+        res, wall = event_wall(fn)
+        return res, wall, {k: deflate.launches[k] - before[k] for k in before}
+
+    # PLSRegressor: fit, predict, score, in float32 (K1), bf16 storage (K2), float64
+    est, wall, d = launched(lambda: tt.PLSRegressor(EST_A).fit(X, Y))
+    check(d == {"deflate_f32": EST_A, "deflate_bf16": 0}, f"PLSRegressor.fit launches {d}")
+    (pred, score), wall_p = event_wall(lambda: (est.predict(X), est.score(X, Y)))
+    est64, wall64 = event_wall(lambda: tt.PLSRegressor(EST_A).fit(X64, Y64))
+    pred64 = est64.predict(X)
+    e_pred, e_coef = np_rel(pred, pred64), np_rel(est.coef_, est64.coef_)
+    score64 = est64.score(X64, Y64)
+    out["PLSRegressor"] = {"fit_s": wall, "predict_score_s": wall_p, "f64_fit_s": wall64,
+                           "pred_rel": e_pred, "coef_rel": e_coef, "score": score,
+                           "score_f64": score64, "launches": d}
+    print(f"PLSRegressor({EST_A}) 100k×5k×10 f32: fit {wall:.4f} s, predict+score "
+          f"{wall_p:.4f} s, launches {d}; vs f64 (fit {wall64:.4f} s): pred rel {e_pred:.3e}, "
+          f"coef_ rel {e_coef:.3e} (bound {EST_RTOL}); R² {score:.6f} (f64 {score64:.6f})")
+    check(pred.shape == (BIG[0], 10) and pred.dtype == np.float32 and np.isfinite(pred).all(),
+          "PLSRegressor.predict: shape / dtype / non-finite")
+    check(max(e_pred, e_coef) <= EST_RTOL and abs(score - score64) <= EST_RTOL,
+          "PLSRegressor f32 disagrees with f64")
+    est16, wall16, d16 = launched(lambda: tt.PLSRegressor(EST_A, x_storage="bf16").fit(X, Y))
+    e16 = np_rel(est16.coef_, est.coef_)
+    out["PLSRegressor_bf16"] = {"fit_s": wall16, "coef_rel_f32": e16, "launches": d16}
+    print(f"PLSRegressor({EST_A}, x_storage='bf16'): fit {wall16:.4f} s, launches {d16}; "
+          f"coef_ vs f32 rel {e16:.3e} (bound {BF16_COEF_RTOL})")
+    check(d16 == {"deflate_f32": 0, "deflate_bf16": EST_A}, f"bf16 fit launches {d16}")
+    check(e16 <= BF16_COEF_RTOL, "PLSRegressor bf16 outside its budget")
+
+    lap("PLSRegressor")
+
+    # the T²/SPE monitor
+    # the first build imports scipy.stats for the limits; the second is warm
+    _, wall_m_cold = event_wall(lambda: est.build_monitor(X))
+    mon, wall_m = event_wall(lambda: est.build_monitor(X))
+    mon64 = est64.build_monitor(X64)
+    c, wall_c = event_wall(lambda: est.check(X[:4 * N_NEW] * 1.5))
+    c64 = est64.check(X64[:4 * N_NEW] * 1.5)
+    e_t2, e_spe = np_rel(c["t2"], c64["t2"]), np_rel(c["spe"], c64["spe"])
+    e_lim = max(abs(float(mon.t2_lim) / float(mon64.t2_lim) - 1),
+                abs(float(mon.spe_lim) / float(mon64.spe_lim) - 1))
+    # a flag may differ only where its statistic lies within EST_RTOL of the limit
+    near = (np.abs(c64["t2"] / float(mon64.t2_lim) - 1) <= EST_RTOL) | (
+        np.abs(c64["spe"] / float(mon64.spe_lim) - 1) <= EST_RTOL)
+    flips = int(((c["ok"] != c64["ok"]) & ~near).sum())
+    out["monitor"] = {"build_s": wall_m, "first_build_s": wall_m_cold, "check_s": wall_c,
+                      "t2_rel": e_t2, "spe_rel": e_spe,
+                      "limits_rel": e_lim, "flagged": int((~c["ok"]).sum()), "flips": flips}
+    print(f"build_monitor 100k×5k: {wall_m:.4f} s warm ({wall_m_cold:.4f} s first, with the "
+          f"scipy.stats import); check {4 * N_NEW} rows {wall_c:.4f} s; vs "
+          f"f64: t2 rel {e_t2:.3e}, spe rel {e_spe:.3e}, limits rel {e_lim:.3e}; "
+          f"{out['monitor']['flagged']} flagged, {flips} flags differ away from a limit")
+    check(max(e_t2, e_spe, e_lim) <= EST_RTOL and flips == 0, "monitor disagrees with f64")
+
+    lap("monitor")
+
+    # PLSB export into build/, and back
+    path = ROOT / "build" / "phase9_model.plsb"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    _, wall_x = event_wall(lambda: est.export_c(str(path)))
+    blob = tt.load_model_c(str(path))
+    est64.export_c(str(path))
+    blob64 = tt.load_model_c(str(path))
+    path.unlink()
+    e_b = np_rel(blob["B_raw"], est.coef_.T)
+    # R and P columns carry an eigenvector's free sign (M = 10): aligned
+    e_x = max(table_dist(blob[k], blob64[k], k in ("R_raw", "P_mon"))
+              for k in ("B_raw", "R_raw", "P_mon", "s2"))
+    raw = (Xn.cpu().numpy() - blob["x_mean"]) @ blob["B_raw"] + blob["b0"]
+    e_raw = np_rel(raw, pred[:N_NEW])
+    out["export"] = {"s": wall_x, "B_vs_coef_rel": e_b, "vs_f64_rel": e_x, "predict_rel": e_raw}
+    print(f"export_c/load_model_c: {wall_x:.4f} s, {blob['K']}×{blob['M']}×{blob['A']}; B_raw vs "
+          f"coef_ rel {e_b:.3e}; vs the f64 model's file rel {e_x:.3e}; raw-unit prediction from "
+          f"the file vs predict rel {e_raw:.3e}")
+    check(e_b <= 1e-6 and e_x <= EST_RTOL and e_raw <= 1e-5 and blob["t2_lim"] > 0,
+          "export disagrees")
+
+    lap("export")
+
+    # prediction intervals: CV+ (10 folds, one un-batched fit each) and split
+    for kind in ("cv+", "split"):
+        (lo, hi, p), wall_i, di = launched(
+            lambda: est.predict_interval(X, Y, Xn, kind=kind, n_folds=10))
+        lo64, hi64, _ = est64.predict_interval(X64, Y64, Xn64, kind=kind, n_folds=10)
+        e_i = max(np_rel(lo, lo64), np_rel(hi, hi64))
+        cover = float(((Y[:N_NEW].cpu().numpy() >= lo) & (Y[:N_NEW].cpu().numpy() <= hi)).mean())
+        out[f"interval_{kind}"] = {"s": wall_i, "rel": e_i, "launches": di, "train_cover": cover}
+        print(f"predict_interval {kind}: {wall_i:.4f} s, launches {di}; vs f64 rel {e_i:.3e} "
+              f"(bound {EST_RTOL}); width {float(np.mean(hi - lo)):.4f}; covers {cover:.3f} of "
+              f"{N_NEW} training rows")
+        expect = EST_A * (11 if kind == "cv+" else 1)
+        check(di["deflate_f32"] == expect, f"{kind}: {di} launches, expected {expect} K1")
+        check(e_i <= EST_RTOL and bool((hi >= lo).all()), f"{kind} intervals disagree")
+
+    lap("predict_interval")
+
+    # the IRLS families: RobustPLSRegressor (10 reweightings), PLSGLMClassifier
+    rob, wall_r, dr = launched(lambda: tt.RobustPLSRegressor(EST_A).fit(X, Y))
+    rob64, wall_r64 = event_wall(lambda: tt.RobustPLSRegressor(EST_A).fit(X64, Y64))
+    e_r = np_rel(rob.coef_, rob64.coef_)
+    e_w = float(np.abs(rob.sample_weight_ - rob64.sample_weight_).max())
+    lap("RobustPLSRegressor")
+    out["RobustPLSRegressor"] = {"fit_s": wall_r, "f64_fit_s": wall_r64, "coef_rel": e_r,
+                                 "weights_abs": e_w, "launches": dr}
+    print(f"RobustPLSRegressor({EST_A}) f32: fit {wall_r:.4f} s, launches {dr}; vs f64 (fit "
+          f"{wall_r64:.4f} s): coef_ rel {e_r:.3e}, weights abs {e_w:.3e} (bound {IRLS_RTOL})")
+    check(dr["deflate_f32"] == EST_A * 11, f"robust launches {dr}")
+    check(e_r <= IRLS_RTOL and e_w <= IRLS_RTOL, "robust f32 disagrees with f64")
+    g = torch.Generator(dev).manual_seed(seed + 9)
+    y01 = ((Y[:, 0] + torch.randn(BIG[0], generator=g, device=dev)) > 0).to(torch.int64)
+    glm, wall_g, dg = launched(lambda: tt.PLSGLMClassifier(EST_A, n_irls=10).fit(X, y01))
+    glm64, wall_g64 = event_wall(lambda: tt.PLSGLMClassifier(EST_A, n_irls=10).fit(X64, y01))
+    p_g, p_g64 = glm.predict_proba(X), glm64.predict_proba(X64)
+    e_g = float(np.abs(p_g - p_g64).max())
+    acc = glm.score(X, y01)
+    out["PLSGLMClassifier"] = {"fit_s": wall_g, "f64_fit_s": wall_g64, "proba_abs": e_g,
+                               "accuracy": acc, "launches": dg}
+    print(f"PLSGLMClassifier({EST_A}, n_irls=10) f32: fit {wall_g:.4f} s, launches {dg}; vs f64 "
+          f"(fit {wall_g64:.4f} s): proba abs {e_g:.3e} (bound {IRLS_RTOL}); accuracy {acc:.4f}")
+    check(dg["deflate_f32"] == EST_A * 10, f"plsglm launches {dg}")
+    check(e_g <= IRLS_RTOL, "plsglm f32 disagrees with f64")
+    del est64, rob64, glm64, X64, Y64
+    torch.cuda.empty_cache()
+    lap("PLSGLMClassifier")
+
+    # grid search: at this size a fold's z-scored copy of X is past the
+    # fold-batch budget, so each fold is an un-batched fit (K1); at GRID_SMALL
+    # the five folds are one batched fit
+    for (n, k) in (BIG, GRID_SMALL):
+        Xg, Yg = (X, Y) if n == BIG[0] else (X[:n, :k].contiguous(), Y[:n])
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = deflate.launches["deflate_f32"]
+        (best, results), wall_gs = event_wall(lambda: tt.grid_search_cv(
+            lambda: tt.PLSRegressor(), {"n_components": list(range(1, EST_A + 1))}, Xg, Yg,
+            n_folds=GRID_FOLDS, key=seed))
+        d_gs = deflate.launches["deflate_f32"] - before
+        peak = torch.cuda.max_memory_allocated(dev)
+        ref, wall_ref = event_wall(lambda: grid_reference(
+            Xg, Yg, kfold_split(n, GRID_FOLDS, seed), EST_A))
+        mine = np.stack([r.fold_rmse for r in results], 1)  # (F, A)
+        e_gs = np_rel(mine, ref)
+        key = f"grid_search_cv_{n}x{k}"
+        out[key] = {"s": wall_gs, "reference_s": wall_ref, "rel": e_gs, "best": best.params,
+                    "peak_bytes": peak, "launches": d_gs}
+        print(f"grid_search_cv {n}×{k}×10, n_components 1..{EST_A}, {GRID_FOLDS} folds: "
+              f"{wall_gs:.4f} s, {d_gs} K1 launches, peak device memory {peak / 2**30:.2f} GiB, "
+              f"best {best.params} (rmse {best.rmse:.5f}); vs un-batched f32 fits on each "
+              f"fold's own scaled rows ({wall_ref:.4f} s) rel {e_gs:.3e} (bound {GRID_RTOL})")
+        expect = GRID_FOLDS * EST_A if n == BIG[0] else 0
+        check(d_gs == expect and e_gs <= GRID_RTOL, f"grid search {n}×{k} disagrees")
+        del Xg, Yg
+
+    lap("grid_search_cv")
+
+    # the families whose cost grows past the width
+    for name, (n, a) in FAMILIES.items():
+        cls = getattr(tt, name)
+        kw = {"keep_x": 500} if name == "SPLSRegressor" else {}
+        if name == "OPLSRegressor":
+            kw = {"n_ortho": 2}
+        if name == "CCA":
+            # two latent directions of distinct strength in X: X's singular
+            # values stay within the float32 pseudo-inverse's cutoff (10·N·eps
+            # of the largest, which the float64 run does not have), and the
+            # two canonical correlations stand apart from each other and from
+            # the ones K/N = 0.5 fits to noise, so the power iteration
+            # converges in tens of steps instead of hundreds
+            g = torch.Generator(dev).manual_seed(seed + 1)
+            lat = torch.randn((n, 2), generator=g, device=dev)
+            Xf = (lat * torch.tensor([0.2, 0.06], device=dev)) @ torch.randn(
+                (2, BIG[1]), generator=g, device=dev) + torch.randn((n, BIG[1]), generator=g,
+                                                                    device=dev)
+            Yf = lat @ torch.randn((2, 10), generator=g, device=dev) + 0.3 * torch.randn(
+                (n, 10), generator=g, device=dev)
+        else:
+            Xf, Yf = X[:n], Y[:n]
+        crossdecomp.counts["host_reads"] = 0
+        before = dict(deflate.launches)
+        e32, wall_f = event_wall(lambda: cls(n_components=a, **kw).fit(Xf, Yf))
+        dl = {k: deflate.launches[k] - before[k] for k in before}
+        reads = crossdecomp.counts["host_reads"]
+        e64, wall_f64 = event_wall(lambda: cls(n_components=a, **kw).fit(Xf.double(), Yf.double()))
+        if name == "PLSSVD":
+            got, want = e32.transform(Xf[:N_NEW]), e64.transform(Xf[:N_NEW].double())
+        else:
+            got, want = e32.predict(Xf[:N_NEW]), e64.predict(Xf[:N_NEW].double())
+        e = np_rel(got, want)
+        out[name] = {"N": n, "A": a, "fit_s": wall_f, "f64_fit_s": wall_f64, "rel": e,
+                     "launches": dl, "host_reads": reads}
+        print(f"{name}({a}) {n}×{BIG[1]}×10 f32: fit {wall_f:.4f} s, launches {dl}, power-"
+              f"iteration host reads {reads}; vs f64 (fit {wall_f64:.4f} s): "
+              f"{'transform' if name == 'PLSSVD' else 'predict'} rel {e:.3e} (bound {FAMILY_RTOL})")
+        check(np.isfinite(got).all() and e <= FAMILY_RTOL, f"{name} disagrees with f64")
+        if name == "OPLSRegressor":
+            check(dl["deflate_f32"] == a, f"OPLS launches {dl}")
+        del e32, e64, Xf, Yf
+        torch.cuda.empty_cache()
+        lap(name)
+    del X, Y
+    torch.cuda.empty_cache()
+    out["part_s"] = laps
+    print(f"phase 9 parts, s: {json.dumps(laps)}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1149,6 +1496,19 @@ def main() -> int:
           f"{json.dumps(slice_out)}")
     check(slice_launches["deflate_f32"] > 0, "phase 8 never launched K1")
     launches["deflate_f32"] += slice_launches["deflate_f32"]
+
+    for counts in (deflate.launches, dv.launches):  # phase 9's run starts here
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    est_out = {"bf16_cli": phase_bf16_cli(deflate), **phase_estimators(deflate, dev, args.seed)}
+    est_launches = {**deflate.launches, **dv.launches}  # ... and ends here
+    print(f"phase 9 launches: {est_launches}; {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(est_out, default=str)}")
+    check(est_launches["deflate_f32"] > 0 and est_launches["deflate_bf16"] > 0,
+          "phase 9 never launched K1 or K2")
+    for k in ("deflate_f32", "deflate_bf16"):
+        launches[k] += est_launches[k]
 
     check("jax" not in sys.modules and "pls_tpu" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": [

@@ -17,7 +17,12 @@ partitions without jax (utils/jax_prng.py); NIPALS and SIMPLS
 "compensated" and "dd" (models/kernel_dd.py), spectral preprocessing
 (spectral.py, `--preprocess`), `ZScorer` (preprocess.py), the VIP /
 target-projection / selectivity-ratio diagnostics and the bootstrap
-(cv/bootstrap.py).
+(cv/bootstrap.py); `--dtype bfloat16`; and the scikit-learn entry point:
+the estimators (estimator.py, models/plsda.py) over the model families
+they front (models/robust.py, sparse.py, opls.py, kpls.py, crossdecomp.py,
+plsglm.py), conformal prediction intervals (cv/conformal.py), the T²/SPE
+monitor (models/diagnostics.py), the PLSB export for native consumers
+(export.py) and hyper-parameter tuning (tune.py).
 """
 
 from pls_tpu_torch.types import (
@@ -107,6 +112,61 @@ from pls_tpu_torch.spectral import (
     savgol_coeffs,
     snv,
 )
+from pls_tpu_torch.cv.conformal import (
+    cv_plus_intervals,
+    jackknife_plus_intervals,
+    split_conformal_intervals,
+)
+from pls_tpu_torch.models.diagnostics import (
+    MonitorModel,
+    fit_monitor,
+    hotelling_t2,
+    leverage,
+    spe,
+    spe_contributions,
+    spe_limit,
+    t2_contributions,
+    t2_limit,
+    x_residuals,
+)
+from pls_tpu_torch.export import export_model_c, load_model_c
+from pls_tpu_torch.models.robust import fit_robust
+from pls_tpu_torch.models.sparse import fit_spls, selected_variables
+from pls_tpu_torch.models.opls import OPLSFit, fit_opls
+from pls_tpu_torch.models.opls import correct as opls_correct
+from pls_tpu_torch.models.opls import predict as opls_predict
+from pls_tpu_torch.models.kpls import KPLSFit, fit_kpls, kernel_matrix, predict_kpls
+from pls_tpu_torch.models.crossdecomp import (
+    CDFit,
+    cd_coefficients,
+    cd_predict,
+    cd_transform,
+    fit_cca,
+    fit_plscanonical,
+    fit_plssvd,
+)
+from pls_tpu_torch.models.plsglm import PLSGLMFit, fit_plsglm, predict_plsglm
+from pls_tpu_torch.models.plsda import PLSDAClassifier
+from pls_tpu_torch.estimator import (
+    CCA,
+    KPLSRegressor,
+    OPLSRegressor,
+    PLSCanonical,
+    PLSGLMClassifier,
+    PLSRegressor,
+    PLSSVD,
+    RobustPLSRegressor,
+    SPLSRegressor,
+)
+from pls_tpu_torch.tune import (
+    NestedCVResult,
+    grid_search_cv,
+    kfold_split,
+    nested_cv_components,
+    nested_grid_search_cv,
+    tune_kpls,
+    tune_spls_keepx,
+)
 from pls_tpu_torch.utils.binio import (
     cv_kfold_npy,
     cv_repeated_kfold_npy,
@@ -143,4 +203,18 @@ __all__ = [
     "npy_chunks", "stats_from_npy", "stream_npy", "write_npy_chunked",
     "ZScorer", "snv", "msc", "MSCorrection", "savgol", "savgol_coeffs", "detrend", "normalize",
     "SNV", "SavitzkyGolay", "Detrend",
+    "cv_plus_intervals", "jackknife_plus_intervals", "split_conformal_intervals",
+    "MonitorModel", "fit_monitor", "hotelling_t2", "leverage", "spe", "spe_contributions",
+    "spe_limit", "t2_contributions", "t2_limit", "x_residuals",
+    "export_model_c", "load_model_c",
+    "fit_robust", "fit_spls", "selected_variables",
+    "OPLSFit", "fit_opls", "opls_correct", "opls_predict",
+    "KPLSFit", "fit_kpls", "kernel_matrix", "predict_kpls",
+    "CDFit", "cd_coefficients", "cd_predict", "cd_transform", "fit_cca", "fit_plscanonical",
+    "fit_plssvd",
+    "PLSGLMFit", "fit_plsglm", "predict_plsglm", "PLSDAClassifier",
+    "CCA", "KPLSRegressor", "OPLSRegressor", "PLSCanonical", "PLSGLMClassifier", "PLSRegressor",
+    "PLSSVD", "RobustPLSRegressor", "SPLSRegressor",
+    "NestedCVResult", "grid_search_cv", "kfold_split", "nested_cv_components",
+    "nested_grid_search_cv", "tune_kpls", "tune_spls_keepx",
 ]

@@ -34,12 +34,6 @@ USAGE = (
     "with no headers."
 )
 
-# the JAX CLI's one option the port does not run yet
-_NOT_PORTED_BF16 = (
-    "--dtype bfloat16 is not ported yet (ROADMAP queue 1 item 11c: the pipeline with bf16 state)"
-)
-
-
 def build_parser() -> argparse.ArgumentParser:
     class _QuietParser(argparse.ArgumentParser):
         # bad argv prints only the usage block and exits 100 (main.cpp:12-16)
@@ -54,8 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="kernel1")
     p.add_argument(
         "--dtype", choices=["float64", "float32", "bfloat16"], default=None,
-        help="working precision (default: float64 on the CPU, float32 on CUDA); "
-        "bfloat16 is not ported yet",
+        help="working precision (default: float64 on the CPU, float32 on CUDA); bfloat16 "
+        "reads and z-scores X and Y in bfloat16 and fits with float32 state",
     )
     p.add_argument(
         "--cv", choices=["both", "loo", "lso", "kfold", "all", "none"], default="both",
@@ -107,10 +101,6 @@ def main(argv: list[str] | None = None) -> int:
             return 0
         print(USAGE, file=sys.stderr)
         return 100
-    if args.dtype == "bfloat16":
-        print(f"Error: {_NOT_PORTED_BF16}", file=sys.stderr)
-        return 1
-
     import torch
 
     from pls_tpu_torch.config import PLSRunConfig, default_device, run_pipeline

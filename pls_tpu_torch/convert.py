@@ -4,11 +4,15 @@ The JAX package's `PLSFit` is a pytree of W, P, Q, R, T arrays, and
 `pls_tpu.PLSModel.save` writes them to an .npz (pls_tpu/model.py:364-416).
 Its streaming accumulators (`pls_tpu/models/streaming.py`) carry
 XᵀX/XᵀY statistics; `stats_from_numpy` turns their arrays into the
-port's.  Everything goes through numpy, so neither package imports the
-other.
+port's.  The other model states (OPLSFit, KPLSFit, CDFit, PLSGLMFit,
+MonitorModel) go across by their dataclass fields: `state_from_numpy` and
+`state_to_numpy`.  Everything goes through numpy, so neither package
+imports the other.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -22,19 +26,28 @@ STATS_FIELDS = ("XX", "XY", "YY", "sx", "sy")
 FOLD_STATS_FIELDS = ("XXf", "XYf", "YYf", "sxf", "syf")
 
 
+def _get(src, name: str):
+    """Field `name` of a dataclass (the JAX package's states), or entry
+    `name` of a mapping (a dict, an .npz)."""
+    return getattr(src, name) if dataclasses.is_dataclass(src) else src[name]
+
+
 def fit_from_numpy(
-    arrays: dict,
+    arrays,
     method: METHOD | str,
     *,
     device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
 ) -> PLSFit:
-    """The port's PLSFit from numpy arrays W, P, Q, R, T (as in the JAX
-    package's PLSFit or its .npz), on `device` (None: the card)."""
+    """The port's PLSFit from numpy-convertible W, P, Q, R, T: a mapping (a
+    dict, the JAX package's .npz) or the JAX package's PLSFit itself, on
+    `device` (None: the card).  `method` is a METHOD, its value, or the
+    JAX package's METHOD."""
     device = resolve_device(device)
     return PLSFit(
-        **{k: torch.tensor(np.asarray(arrays[k]), dtype=dtype, device=device) for k in FIELDS},
-        method=METHOD(method),
+        **{k: torch.tensor(np.asarray(_get(arrays, k)), dtype=dtype, device=device)
+           for k in FIELDS},
+        method=METHOD(getattr(method, "value", method)),
     )
 
 
@@ -73,3 +86,45 @@ def stats_from_numpy(
     for name, v in vals.items():
         setattr(acc, name, v)
     return acc
+
+
+def state_from_numpy(
+    cls,
+    src,
+    *,
+    device: torch.device | str | None = None,
+    dtype: torch.dtype | None = None,
+):
+    """A model state of the port's dataclass `cls` (OPLSFit, KPLSFit, CDFit,
+    PLSGLMFit, MonitorModel) from `src`, the JAX package's state of the
+    same name or a mapping of its fields, on `device` (None: the card).
+    Array fields become tensors (in `dtype`, default the array's); a nested
+    PLSFit (`pls`) goes through `fit_from_numpy`; str, int, float and None
+    fields (kernel, gamma, mode, family, alpha...) are copied."""
+    device = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = _get(src, f.name)
+        if f.name == "pls":
+            kw[f.name] = fit_from_numpy(v, _get(v, "method"), device=device, dtype=dtype)
+        elif v is None or isinstance(v, (str, int, float)):
+            kw[f.name] = v
+        else:
+            kw[f.name] = torch.tensor(np.asarray(v), dtype=dtype, device=device)
+    return cls(**kw)
+
+
+def state_to_numpy(state) -> dict:
+    """A port's model state as a dict of its fields: tensors as numpy
+    arrays, a nested PLSFit as `fit_to_numpy`'s dict plus its method's
+    value, other fields as they are."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, PLSFit):
+            out[f.name] = {**fit_to_numpy(v), "method": v.method.value}
+        elif isinstance(v, torch.Tensor):
+            out[f.name] = v.detach().cpu().numpy()
+        else:
+            out[f.name] = v
+    return out

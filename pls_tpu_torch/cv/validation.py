@@ -21,7 +21,7 @@ import torch
 from pls_tpu_torch.ops.stats import sst
 from pls_tpu_torch.ops.wilcoxon import wilcoxon
 from pls_tpu_torch.types import MSE, RESS, VALIDATION_OUTPUT, Residual
-from pls_tpu_torch.utils.reporting import format_eigen
+from pls_tpu_torch.utils.reporting import format_eigen, host
 
 
 def validation(residual: Residual, out_type: VALIDATION_OUTPUT = RESS) -> torch.Tensor:
@@ -94,7 +94,7 @@ def print_validation(
         em = em.sqrt()
     print(f"{residual.method} Validation:", file=file)
     print(f"{label} Matrix (rows = Y variable; cols = # of components):", file=file)
-    print(format_eigen(em.cpu().numpy()), file=file)
+    print(format_eigen(host(em)), file=file)
     opt = optimal_num_components(residual, alpha).tolist()
     # Eigen prints the integer column vector one entry per line, the first
     # after the tab (pls.cpp:304)

@@ -37,7 +37,7 @@ from pls_tpu_torch.models.kernel_pls import fit as _fit
 from pls_tpu_torch.ops.stats import sst
 from pls_tpu_torch.types import METHOD, PLSFit, Residual
 from pls_tpu_torch.utils.gcc_rng import GccRng
-from pls_tpu_torch.utils.reporting import format_eigen, format_eigen_complex
+from pls_tpu_torch.utils.reporting import format_eigen, format_eigen_complex, host
 
 
 class PLSModel:
@@ -295,7 +295,7 @@ class PLSModel:
 
     def print_explained_variance(self, X=None, Y=None, file=None) -> None:
         file = sys.stderr if file is None else file
-        sse, ev = (v.cpu().numpy() for v in self.explained_variance_profile(X, Y))
+        sse, ev = (host(v) for v in self.explained_variance_profile(X, Y))
         wd = max(1, int(np.ceil(np.log10(max(self.A, 2)))))
         for ncomp in range(1, self.A + 1):
             print(
@@ -317,7 +317,7 @@ class PLSModel:
         ]:
             print(f"{label}:", file=file)
             # Eigen prints an empty matrix as just the newline
-            print(fmt(mat.cpu().numpy()) if mat.numel() else "", file=file)
+            print(fmt(host(mat)) if mat.numel() else "", file=file)
 
     # ---------- checkpointing ----------
     def save(self, path: str, *, include_data: bool = False) -> None:

@@ -214,18 +214,21 @@ def fit_folds(
     """One fit per row of `row_masks` (F, N), batched on a leading fold
     axis: the returned tensors are (F, K, A), (F, M, A), ...  Fold f equals
     `fit(X, Y, A, method, row_mask=row_masks[f], ...)` up to summation
-    order.  A row of `row_masks` may also hold row weights, which multiply
-    X and Y as a mask does (the bootstrap's √counts).  With
-    x_storage="bf16" the masked X is rounded to bf16 and the batched
-    products run on its float32 widening."""
+    order.  X (F, N, K) and Y (F, N, M) may carry the fold axis already:
+    each fold's own copy (tune.py's per-fold z-scoring) whose rows outside
+    its mask the caller has zeroed, used as it is, without a masked copy.
+    A row of `row_masks` may also hold row weights, which multiply X and Y
+    as a mask does (the bootstrap's √counts).  With x_storage="bf16" the masked
+    X is rounded to bf16 and the batched products run on its float32
+    widening."""
     _check_method(method, x_storage, precision)
     if Y.ndim == 1:
         Y = Y[:, None]
     m = row_masks.to(X.dtype)[:, :, None]
-    Xf = X[None] * m
+    Xf = X if X.ndim == 3 else X[None] * m
     if x_storage is not None:
         Xf = Xf.to(torch.bfloat16)
-    return _fit_method(Xf, Y[None] * m, A, method, power_iters, precision)
+    return _fit_method(Xf, Y if Y.ndim == 3 else Y[None] * m, A, method, power_iters, precision)
 
 
 def _t_tt_p(X: torch.Tensor, Xa: torch.Tensor, r: torch.Tensor):

@@ -16,8 +16,9 @@ and then R = W (PᵀW)⁻¹ maps the original X to the scores (T = X R), so
 The pair after the inner loop, t = Xd w and p = Xdᵀt / tᵀt, is the
 deflation pass of kernel type 1 on Xd with r = w.  For one fit it goes
 through `ops.deflate.deflate_pass`: the CUDA kernel K1 for float32 Xd on
-the card (counted in `deflate.launches["deflate_f32"]`), the plain form
-for a CPU tensor or float64.  The inner iterations are two torch
+the card (counted in `deflate.launches["deflate_f32"]`; K2 for bfloat16
+Xd, whose state stays bfloat16 as in the JAX package), the plain form for
+a CPU tensor or float64.  The inner iterations are two torch
 matrix-vector products each, as the JAX package leaves them to XLA.
 
 X and Y may carry a leading fold axis (F, N, K) / (F, N, M), as
@@ -55,9 +56,9 @@ def _mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _tp(Xd: torch.Tensor, w: torch.Tensor):
     """(t, tt, Xdᵀt) for w: the kernel pass for one fit, products for a batch."""
     if Xd.ndim == 2:
-        from pls_tpu_torch.ops.deflate import deflate_pass
+        from pls_tpu_torch.ops.deflate import deflate_pass_narrow
 
-        return deflate_pass(Xd, w)
+        return deflate_pass_narrow(Xd, w)
     t = _mv(Xd, w)
     return t, (t * t).sum(-1), _mv(Xd.mT, t)
 
@@ -130,5 +131,8 @@ def fit_nipals(
         # R maps the original X to the scores: T = X R with R = W (PᵀW)⁻¹,
         # PᵀW upper triangular with a unit diagonal
         PtW = P.mT @ W
-        R = torch.linalg.solve_triangular(PtW.mT, W.mT, upper=False).mT
+        # in float32 for bf16 X, whose triangular solve torch lacks
+        wide = torch.promote_types(W.dtype, torch.float32)
+        R = torch.linalg.solve_triangular(PtW.mT.to(wide), W.mT.to(wide), upper=False)
+        R = R.mT.to(W.dtype)
     return PLSFit(W=W, P=P, Q=torch.stack(Qs, -1), R=R, T=torch.stack(Ts, -1), method=METHOD.NIPALS)

@@ -11,7 +11,8 @@ X-loading space, so its weights apply to the original X:
 
 The X pass, (t, tᵀt, Xᵀt) for r, is kernel type 1's deflation pass, so a
 single fit takes it from `ops.deflate.deflate_pass` (the CUDA kernel K1
-for float32 X on the card, counted in `deflate.launches["deflate_f32"]`)
+for float32 X on the card, counted in `deflate.launches["deflate_f32"]`;
+K2 for bfloat16 X, whose state stays bfloat16 as in the JAX package)
 and divides t, r and p by √(tᵀt) after it.  A batch of CV folds (a
 leading fold axis, from `kernel_pls.fit_folds`) takes batched products.
 The basis is JAX's zero-initialised (A, K) buffer, and the Gram-Schmidt
@@ -40,7 +41,8 @@ def fit_simpls(
     precision: str | None = "highest",
 ) -> PLSFit:
     """SIMPLS fit of A components on X (..., N, K), Y (..., N, M); W = R."""
-    from pls_tpu_torch.models.kernel_pls import _prec_ctx, _t_tt_p
+    from pls_tpu_torch.models.kernel_pls import _prec_ctx
+    from pls_tpu_torch.ops.deflate import deflate_pass_narrow
 
     if Y.ndim == X.ndim - 1:
         Y = Y[..., None]
@@ -56,7 +58,11 @@ def fit_simpls(
                 r = S[..., 0]
             else:
                 r = _mv(S, dominant_eigenvector(S.mT @ S, power_iters))
-            t, tt, p = _t_tt_p(X, X, r.contiguous())
+            if X.ndim == 2:
+                t, tt, p = deflate_pass_narrow(X, r.contiguous())
+            else:
+                t = _mv(X, r)
+                tt, p = (t * t).sum(-1), _mv(X.mT, t)
             tnorm = torch.sqrt(tt)[..., None]
             t = t / tnorm
             r = r / tnorm

@@ -184,11 +184,11 @@ def kernel_name(dtype: torch.dtype) -> str:
 def deflate_pass_plain(X: torch.Tensor, r: torch.Tensor):
     """The two-product form, in plain PyTorch: t = X r, p = Xᵀt, tt = r·p.
 
-    bf16 X is widened to float32 first, so t stays float32: the semantics
-    of the bf16 kernel, not of `deflate_pass_xla`'s bf16 branch, which
-    rounds t back to bf16."""
+    bf16 X (and r) is widened to float32 first, so t stays float32: the
+    semantics of the bf16 kernel, not of `deflate_pass_xla`'s bf16 branch,
+    which rounds t back to bf16."""
     if X.dtype == torch.bfloat16:
-        X = X.float()
+        X, r = X.float(), r.float()
     t = X @ r
     p = X.T @ t
     return t, r @ p, p
@@ -316,3 +316,13 @@ def deflate_pass(X: torch.Tensor, r: torch.Tensor):
     if X.device.type == "cpu" or X.dtype == torch.float64:
         return deflate_pass_plain(X, r)
     return deflate_pass_cuda(X, r)
+
+
+def deflate_pass_narrow(X: torch.Tensor, r: torch.Tensor):
+    """`deflate_pass` for fits whose state has X's dtype, as NIPALS and
+    SIMPLS keep it in the JAX package: for bf16 X, r goes in widened to
+    float32 (the kernel's contract) and t, tt, p come back rounded to
+    bf16.  Other dtypes pass through."""
+    if X.dtype != torch.bfloat16:
+        return deflate_pass(X, r)
+    return tuple(v.to(X.dtype) for v in deflate_pass(X, r.float()))

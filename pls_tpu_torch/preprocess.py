@@ -18,7 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
-from pls_tpu_torch.ops.stats import colwise_stdev
+from pls_tpu_torch.ops.stats import colwise_mean, colwise_stdev
 
 
 @dataclass(frozen=True)
@@ -32,7 +32,7 @@ class ZScorer:
         weighted moments (denominator Σw − 1), so integer weights equal
         z-scoring the row-repeated data."""
         if sample_weight is None:
-            mean = mat.mean(0)
+            mean = colwise_mean(mat)
             sd = colwise_stdev(mat, mean)
         else:
             w = torch.as_tensor(sample_weight, dtype=mat.dtype, device=mat.device).reshape(-1)

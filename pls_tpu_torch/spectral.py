@@ -22,8 +22,8 @@ package, and cast to X's dtype.  The functions take a tensor and compute
 on its device; other data goes to the card (`config.resolve_device`:
 RuntimeError without one).  `SNV`, `SavitzkyGolay`, `Detrend` and
 `MSCorrection` follow the sklearn protocol (fit/transform/get_params/
-set_params) and return numpy arrays, as the JAX package's do; their
-sklearn tags wait for `estimator.py`, which the port does not have.
+set_params, and sklearn's tags through `estimator._sklearn_tags`) and
+return numpy arrays, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -120,6 +120,9 @@ class MSCorrection:
         for k, v in params.items():
             setattr(self, k, v)
         return self
+
+    def __sklearn_tags__(self):
+        return _transformer_tags()
 
 
 def savgol_coeffs(window: int, polyorder: int, deriv: int = 0, delta: float = 1.0) -> np.ndarray:
@@ -233,6 +236,14 @@ def apply_chain(X, spec: str) -> torch.Tensor:
     return X
 
 
+def _transformer_tags():
+    """sklearn's tag object for a transformer (estimator.py imports sklearn
+    only when asked)."""
+    from pls_tpu_torch.estimator import _sklearn_tags
+
+    return _sklearn_tags("transformer")
+
+
 class _StatelessTransformer:
     """sklearn-protocol facade over a stateless row transform, computed on
     `device` (None: that of a tensor X, else the card); transform returns
@@ -256,6 +267,9 @@ class _StatelessTransformer:
         for k, v in params.items():
             setattr(self, k, v)
         return self
+
+    def __sklearn_tags__(self):
+        return _transformer_tags()
 
 
 class SNV(_StatelessTransformer):

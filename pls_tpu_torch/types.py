@@ -20,8 +20,7 @@ class METHOD(enum.Enum):
     KERNEL_TYPE1 / KERNEL_TYPE2 are the Dayal–MacGregor improved kernel
     algorithms; NIPALS the classical X-deflating algorithm
     (models/nipals.py); SIMPLS de Jong's (models/simpls.py).  SPLS tags the
-    fits of the JAX package's sparse-PLS extension, so that models it
-    saved keep their label; sparse fitting is not ported.
+    fits of sparse PLS (models/sparse.py).
     """
 
     KERNEL_TYPE1 = "kernel1"

@@ -19,6 +19,18 @@ def default_batch_size(n_items: int, N: int, K: int, itemsize: int) -> int:
     return max(1, min(n_items, FOLD_BATCH_BYTES // max(1, N * K * itemsize)))
 
 
+def fold_batch_size(n_folds: int, X: torch.Tensor, batch_size: int | None = None) -> int:
+    """Folds per batch of masked fits, for conformal's folds and the grid
+    search's: `batch_size`, or as many as keep a batch's (F, N, K) copies
+    of X near 128 MiB, at most 64.  A batch of one fold is an un-batched
+    fit (K1 on the card), a larger one a batched fit
+    (`kernel_pls.fit_folds`)."""
+    if batch_size is not None:
+        return batch_size
+    N, K = X.shape
+    return min(64, default_batch_size(n_folds, N, K, X.element_size()))
+
+
 def chunked_map(fn, xs: torch.Tensor, batch_size: int) -> torch.Tensor:
     """torch.cat of fn(chunk) over chunks of xs's leading axis."""
     return torch.cat([fn(xs[i : i + batch_size]) for i in range(0, xs.shape[0], batch_size)])

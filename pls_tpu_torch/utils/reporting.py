@@ -15,6 +15,15 @@ from __future__ import annotations
 import numpy as np
 
 
+def host(t) -> np.ndarray:
+    """A tensor's values as a numpy array on the host; bfloat16, which
+    numpy lacks, widens to float32 (exactly)."""
+    import torch
+
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def _fmt_g6(v: float) -> str:
     """C++ ostream default double formatting (= printf %g, precision 6)."""
     return f"{v:.6g}"

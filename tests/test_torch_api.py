@@ -19,16 +19,11 @@ import pls_tpu_torch
 
 # whole JAX modules the port has no counterpart of yet
 GAP_MODULES = {
-    "pls_tpu.cv.conformal", "pls_tpu.cv.inference",
-    "pls_tpu.estimator", "pls_tpu.export", "pls_tpu.sampling",
-    "pls_tpu.select", "pls_tpu.transfer", "pls_tpu.tune",
+    "pls_tpu.cv.inference", "pls_tpu.sampling", "pls_tpu.select", "pls_tpu.transfer",
     "pls_tpu.utils.checkpoint",
-    "pls_tpu.models.crossdecomp", "pls_tpu.models.diagnostics",
-    "pls_tpu.models.kpls", "pls_tpu.models.missing", "pls_tpu.models.multiblock",
-    "pls_tpu.models.npls", "pls_tpu.models.o2pls", "pls_tpu.models.opls",
-    "pls_tpu.models.oplsda", "pls_tpu.models.plscox", "pls_tpu.models.plsda",
-    "pls_tpu.models.plsglm", "pls_tpu.models.plspm", "pls_tpu.models.recursive",
-    "pls_tpu.models.robust", "pls_tpu.models.sparse",
+    "pls_tpu.models.missing", "pls_tpu.models.multiblock", "pls_tpu.models.npls",
+    "pls_tpu.models.o2pls", "pls_tpu.models.oplsda", "pls_tpu.models.plscox",
+    "pls_tpu.models.plspm", "pls_tpu.models.recursive",
 }
 # names missing from modules the port has
 GAP_NAMES = {

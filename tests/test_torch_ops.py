@@ -50,6 +50,25 @@ def test_stats_match_jax():
     assert stats.colwise_z_scores(_t(X[:, 0])).shape == (30, 1)
 
 
+def test_bf16_z_scores_bit_equal_jax():
+    """bf16 z-scoring (`--dtype bfloat16`) equals the JAX package's bit for
+    bit.  nir's column 393 has its mean on a bf16 rounding tie: jnp.mean's
+    float32 sum times 1/N rounds it up, a float32 division down."""
+    from pls_tpu.utils.io import read_matrix_file
+
+    rng = np.random.default_rng(0)
+    nir = read_matrix_file(str(pt.__path__[0]) + "/data/nir.csv")
+    for X in (nir, rng.normal(size=(60, 64)) * 3 + 1):
+        Xt = torch.as_tensor(np.asarray(X), dtype=torch.bfloat16)
+        Xj = jnp.asarray(np.asarray(X), jnp.bfloat16)
+        assert np.array_equal(stats.colwise_mean(Xt).float().numpy(),
+                              np.asarray(jnp.mean(Xj, 0).astype(jnp.float32)))
+        mine = stats.colwise_z_scores(Xt)
+        assert mine.dtype == torch.bfloat16
+        assert np.array_equal(mine.float().numpy(),
+                              np.asarray(pt.colwise_z_scores(Xj).astype(jnp.float32)))
+
+
 def test_normalcdf_bit_parity(golden):
     table = golden("normalcdf")
     z = np.concatenate([table[:, 0], np.linspace(-8, 8, 1001)])
