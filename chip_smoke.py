@@ -11,7 +11,8 @@ Phases, each of which fails the run:
   2. kernel vs plain: the f32 (K1) and bf16 (K2) kernels against
      `deflate_pass_plain` on the same inputs and against f64 truth on the
      card, at every shape the main path gives them (toy 10×15, nir 60×401,
-     100000×5000) and at (130, 96), (300, 401), (4096, 5000), (65536,
+     100000×5000; phase 10's 10000×1000 and each of two ranks' 50000×5000)
+     and at (130, 96), (300, 401), (4096, 5000), (65536,
      2048), a ragged (4099, 5000), K = 8 (1000, 8), a bf16 K too wide for
      the column-owning path (1024, 16384) and a K too wide for the staged
      form (2048, 30000), printing each launch's path (cols / staged /
@@ -104,13 +105,34 @@ Phases, each of which fails the run:
      batched fit), against un-batched float32 fits on each fold's own
      scaled rows (1e-4);
      then SPLS, OPLS, KPLS, PLSCanonical, CCA and PLSSVD at K = 5000, M =
-     10 and the rows of FAMILIES, each against float64 (5e-3).
+     10 and the rows of FAMILIES, each against float64 (5e-3);
+ 10. the parallel slice on torch.distributed.  NCCL at world size 1 on
+     this card through `initialize_distributed` (a `file://` store under
+     build/, removed at exit): on phase 4's data (100000×5000×10, A = 20)
+     `fit_sharded` in f32 (K1 20 times) and with x_storage="bf16" (K2 20
+     times, cols path), `fit_rowsharded_shardmap(use_kernel=True)` type 1
+     (K1, T gathered to 100000×20) and type 2, and `fit_colsharded`, each
+     held to the same fit on one device (1e-5) with the largest
+     difference printed; on its first 10000 rows and 1000 columns (A =
+     10, 16 trials) `cv_lso_sharded`, `cv_lso_rowsharded(trial_batch=2)`
+     and `train_step` (K1 10 times), and on 2000 rows `cv_loo_sharded`,
+     held to the port's `cv_lso`/`cv_loo` on the card (2e-5: folds
+     batched in other sizes); the sharded fit's wall against the
+     one-device fit's, in 10 pairs (PAR_PAIRS), alternating which goes
+     first.  Then two gloo ranks share the card (`--rank` runs of this
+     script, started by `parallel.launch.spawn_ranks`): `fit_sharded`,
+     `fit_rowsharded_shardmap(use_kernel=True)` and `train_step` at
+     100000×5000×10, A = 20, each rank launching K1 on its own 50000 rows,
+     rank 0 holding them to the one-device fit and press (1e-5, 2e-5).
+     One line a call: CUDA-event wall, launches by path, error.
 
 The K1/K2 launch counts are set to 0 just before phase 3 and read just
 after phase 4; the K3-K5 counts just before and after phase 6; all of
 them just before and after phase 7, where they stay 0, and just before
 and after phases 8 and 9, whose K1 (and phase 9's K2) launches join phase
-3-4's in the record.  The last
+3-4's in the record; phase 10 sets them to 0 after its one-device
+references and reads them after its sharded calls, and its two ranks
+report their own counts, all of which join the record.  The last
 two lines of stdout are the kernels' JSON record (K1-K5; ms is the
 back-to-back time per call, K1/K2 at 100000×5000, K3-K5 of the best
 variant at 65536×2048 by the sweep's chain slope, timed again back to
@@ -162,8 +184,10 @@ BF16_COEF_RTOL = 2e-2
 BF16_EV_ATOL = 2e-3
 
 BIG = (100_000, 5_000)
-# every (N, K) the main path hands the kernel: toy, nir, the real-size fit
-MAIN_PATH_SHAPES = [(10, 15), (60, 401), BIG]
+# every (N, K) the main path hands the kernel: toy, nir, the real-size fit,
+# and phase 10's: train_step's global fit at PAR_CV (world size 1) and each
+# of the two gloo ranks' half of BIG's rows
+MAIN_PATH_SHAPES = [(10, 15), (60, 401), BIG, (10_000, 1_000), (BIG[0] // 2, BIG[1])]
 # K2's column-owning path: the sweep's shape, a ragged last tile, K = 8;
 # then a bf16 K past it (row-staged) and a K past the staged form (wide)
 KERNEL_SHAPES = [(130, 96), (300, 401), (4096, 5000), (65_536, 2_048), (4099, 5000), (1000, 8),
@@ -245,6 +269,22 @@ FAMILIES = {"SPLSRegressor": (100_000, 5), "OPLSRegressor": (100_000, 3),
             "KPLSRegressor": (20_000, 5), "PLSCanonical": (100_000, 3), "CCA": (10_000, 2),
             "PLSSVD": (100_000, 5)}
 FAMILY_RTOL = 5e-3  # float32 against float64 of the same call (METHOD_COEF_RTOL)
+
+# phase 10: the parallel slice on torch.distributed.  The fits at BIG, A =
+# 20; the fold-sharded CV on the first PAR_CV rows and columns of the same
+# data (A = PAR_CV_A, PAR_TRIALS trials, a quarter of the rows held out),
+# LOO on its first PAR_LOO_N rows (N folds of N-row masked fits)
+PAR_A = 20
+PAR_CV, PAR_CV_A, PAR_TRIALS, PAR_LOO_N = (10_000, 1_000), 10, 16, 2_000
+PAR_STEP_TRIALS = 2  # train_step's trials at BIG: one batch of masked copies of a shard
+PAR_TIMEOUT = 300  # seconds: the collectives' timeout, and the two-rank run's
+PAR_PAIRS = 10  # (one-device fit, sharded fit) pairs timed at world size 1
+# a sharded call against the same call on one device: float32 sums over
+# ranks (two gloo ranks; the column-sharded fit's sums over K in another
+# order, 4.5e-7 measured), or, for the CV errors and press, batches of
+# another size (the LOO/LSO folds; 2.95e-6 at most measured, PERF.md §6)
+PAR_RTOL = 1e-5
+PAR_CV_RTOL = 2e-5
 
 # (kernel name, its source in pls_tpu_torch/csrc, the TPU kernel it
 # replaces, the launch counters that are its launches)
@@ -1433,14 +1473,243 @@ def phase_estimators(deflate, dev, seed: int) -> dict:
     return out
 
 
+def coef_rel(f, ref) -> float:
+    from pls_tpu_torch.models.predict import coefficients
+
+    return rel_err(coefficients(f), coefficients(ref))
+
+
+def run_call(deflate, fn):
+    """(fn(), its CUDA-event wall, its launches by path), printed later."""
+    before = dict(deflate.path_launches)
+    res, wall = event_wall(fn)
+    return res, wall, {k: v - before[k] for k, v in deflate.path_launches.items() if v != before[k]}
+
+
+def par_check(lines: list, name: str, wall: float, paths: dict, err: float, tol: float,
+              extra: str = "") -> dict:
+    lines.append(f"  {name}: wall {wall:.4f} s, launches by path {paths}, rel err {err:.3e} "
+                 f"(bound {tol:g}){extra}")
+    check(err <= tol, f"phase 10 {name}: rel err {err:.2e} > {tol}")
+    return {"s": wall, "launches_by_path": paths, "rel_err": err}
+
+
+def phase_parallel(deflate, dev, seed: int, fit_walls: dict) -> tuple[dict, dict]:
+    """Phase 10: the parallel slice.  NCCL at world size 1 on this card, each
+    call held to the same work on one device; then two gloo ranks sharing
+    the card (`phase_parallel_rank`).  Returns (its walls and errors, the K1/K2
+    launches of its sharded calls, both runs)."""
+    import torch.distributed as dist
+
+    from pls_tpu_torch.cv.loo import cv_loo
+    from pls_tpu_torch.cv.lso import cv_lso, random_partitions
+    from pls_tpu_torch.models.kernel_pls import fit
+    from pls_tpu_torch.parallel import (cv_lso_rowsharded, cv_lso_sharded, cv_loo_sharded,
+                                        fit_colsharded, fit_rowsharded_shardmap, fit_sharded,
+                                        initialize_distributed, make_pls_mesh, train_step)
+    from pls_tpu_torch.parallel.launch import spawn_ranks
+    from pls_tpu_torch.types import KERNEL_TYPE2
+
+    out, lines = {}, []
+    X, Y = make_big(dev, seed)
+    n, k = PAR_CV
+    Xc, Yc = X[:n, :k].contiguous(), Y[:n].contiguous()
+    Xo, Yo = Xc[:PAR_LOO_N], Yc[:PAR_LOO_N]
+    parts = random_partitions(torch.Generator(dev).manual_seed(seed + 4), n, PAR_TRIALS)
+    train = 3 * n // 4
+    # the same work on one device, before the counts start
+    ref = {"f32": fit(X, Y, PAR_A), "bf16": fit(X, Y, PAR_A, x_storage="bf16"),
+           "type2": fit(X, Y, PAR_A, KERNEL_TYPE2), "cv": fit(Xc, Yc, PAR_CV_A)}
+    lso_ref = cv_lso(Xc, Yc, PAR_CV_A, (n - train) / n, PAR_TRIALS, partitions=parts).errors
+    loo_ref = cv_loo(Xo, Yo, PAR_CV_A).errors
+    press_ref = (lso_ref * lso_ref).sum(1)  # (M, A)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        initialize_distributed(f"file://{tmp}/store", 1, 0, device=dev, timeout_sec=PAR_TIMEOUT)
+        try:
+            check(dist.get_backend() == "nccl", f"world size 1 runs {dist.get_backend()}")
+            mesh = make_pls_mesh(rows=1, folds=1)
+            check(mesh.device == dev, f"mesh device {mesh.device}")
+            # NCCL sets its communicator up on the first collective
+            out["nccl_setup_s"] = synced_wall(lambda: mesh.psum(torch.ones(1, device=dev),
+                                                                "rows"))[1]
+            for counts in (deflate.launches, deflate.path_launches):  # phase 10's run starts here
+                for c in counts:
+                    counts[c] = 0
+            calls = [
+                ("fit_sharded f32", lambda: fit_sharded(X, Y, PAR_A, mesh=mesh), ref["f32"]),
+                ("fit_sharded bf16", lambda: fit_sharded(X, Y, PAR_A, mesh=mesh,
+                                                         x_storage="bf16"), ref["bf16"]),
+                ("fit_rowsharded_shardmap type1 use_kernel",
+                 lambda: fit_rowsharded_shardmap(X, Y, PAR_A, mesh=mesh, use_kernel=True),
+                 ref["f32"]),
+                ("fit_rowsharded_shardmap type2",
+                 lambda: fit_rowsharded_shardmap(X, Y, PAR_A, False, mesh=mesh), ref["type2"]),
+                ("fit_colsharded", lambda: fit_colsharded(X, Y, PAR_A, mesh=mesh), ref["f32"]),
+            ]
+            for name, fn, r in calls:
+                f, wall, paths = run_call(deflate, fn)
+                diff = max(float((getattr(f, a) - getattr(r, a)).abs().max()) for a in "WPQR")
+                extra = f"; state max |diff| {diff:.3e}"
+                if "shardmap type1" in name:
+                    check(tuple(f.T.shape) == (BIG[0], PAR_A), f"{name}: T {tuple(f.T.shape)}")
+                    extra += f", T gathered rel err {rel_err(f.T, r.T):.3e}"
+                    check(rel_err(f.T, r.T) <= PAR_RTOL, f"{name}: T off")
+                elif name.startswith("fit_sharded"):
+                    check(tuple(f.T.shape) == (0, PAR_A), f"{name}: T {tuple(f.T.shape)}")
+                out[name] = par_check(lines, name, wall, paths, coef_rel(f, r), PAR_RTOL, extra)
+                out[name]["state_max_abs_diff"] = diff
+            cv_calls = [
+                ("cv_lso_sharded", lambda: cv_lso_sharded(Xc, Yc, PAR_CV_A, parts, train,
+                                                          mesh=mesh).errors, lso_ref),
+                ("cv_lso_rowsharded trial_batch=2",
+                 lambda: cv_lso_rowsharded(Xc, Yc, PAR_CV_A, parts, train, mesh=mesh,
+                                           trial_batch=2).errors, lso_ref),
+                ("cv_loo_sharded", lambda: cv_loo_sharded(Xo, Yo, PAR_CV_A, mesh=mesh).errors,
+                 loo_ref),
+            ]
+            for name, fn, r in cv_calls:
+                e, wall, paths = run_call(deflate, fn)
+                check(e.shape == r.shape, f"{name}: errors {tuple(e.shape)}")
+                out[name] = par_check(lines, name, wall, paths, rel_err(e, r), PAR_CV_RTOL)
+            (f, press), wall, paths = run_call(
+                deflate, lambda: train_step(Xc, Yc, PAR_CV_A, parts, train, mesh=mesh))
+            check(tuple(press.shape) == tuple(press_ref.shape) and bool(torch.isfinite(press).all()),
+                  "train_step: press shape / non-finite")
+            out["train_step"] = par_check(
+                lines, "train_step", wall, paths, coef_rel(f, ref["cv"]), PAR_RTOL,
+                f"; press rel err {rel_err(press, press_ref):.3e}")
+            check(rel_err(press, press_ref) <= PAR_CV_RTOL, "train_step: press off")
+            launches = dict(deflate.launches)  # ... and ends here (the two ranks' come below)
+            expect = {"deflate_f32": 2 * PAR_A + PAR_CV_A, "deflate_bf16": PAR_A}
+            check(launches == expect, f"phase 10 world size 1: launches {launches}, not {expect}")
+            # the cost of the collective path: the one-device and the sharded
+            # fit in pairs, alternating which goes first
+            walls = {"fit": [], "fit_sharded": []}
+            fns = {"fit": lambda: fit(X, Y, PAR_A),
+                   "fit_sharded": lambda: fit_sharded(X, Y, PAR_A, mesh=mesh)}
+            for i in range(PAR_PAIRS):
+                for key in (("fit", "fit_sharded") if i % 2 == 0 else ("fit_sharded", "fit")):
+                    walls[key].append(event_wall(fns[key])[1])
+            out["fit_walls"] = {key: statistics.median(w) for key, w in walls.items()}
+            out["fit_walls_range"] = {key: (min(w), max(w)) for key, w in walls.items()}
+        finally:
+            dist.destroy_process_group()
+    print(f"phase 10, NCCL at world size 1 on {torch.cuda.get_device_name(0)} (first "
+          f"all-reduce, the communicator's set-up: {out['nccl_setup_s']:.3f} s):")
+    for ln in lines:
+        print(ln)
+    w, rng = out["fit_walls"], out["fit_walls_range"]
+    print(f"  100k×5k×10 A={PAR_A} f32 fit wall, warm, median of {PAR_PAIRS} pairs: fit_sharded "
+          f"{w['fit_sharded']:.4f} s ({rng['fit_sharded'][0]:.4f}-{rng['fit_sharded'][1]:.4f}) "
+          f"against one-device fit {w['fit']:.4f} s ({rng['fit'][0]:.4f}-{rng['fit'][1]:.4f}); "
+          f"phase 4's PLSModel fit {fit_walls['f32']:.4f} s: {w['fit_sharded'] - w['fit']:+.4f} s "
+          f"for {PAR_A} all-reduces of {BIG[1] + 1} floats and one of XᵀY")
+    del X, Y, Xc, Yc, Xo, Yo, ref, lso_ref, loo_ref
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    outs = spawn_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--seed", str(seed)], 2,
+                       timeout_sec=PAR_TIMEOUT, cwd=ROOT)
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    out["gloo_2_ranks"] = {"s": time.perf_counter() - t0, **ranks[0]}
+    print(f"phase 10, two gloo ranks sharing the card ({time.perf_counter() - t0:.1f} s with "
+          f"start-up):")
+    for r, res in enumerate(ranks):
+        print(f"  rank {r}: launches {res['launches']}, by path {res['path_launches']}")
+        check(res["launches"] == {"deflate_f32": 3 * PAR_A, "deflate_bf16": 0},
+              f"rank {r}: launches {res['launches']}, expected {3 * PAR_A} K1")
+        check(res["path_launches"]["staged"] == 3 * PAR_A, f"rank {r}: K1 left the staged path")
+    for name, res in ranks[0]["calls"].items():
+        par_check([], name, res["s"], {}, res["rel_err"], PAR_RTOL)
+        print(f"  {name}: wall {res['s']:.4f} s warm ({res['first_s']:.4f} s first), rel err "
+              f"{res['rel_err']:.3e} against the one-device fit (bound {PAR_RTOL:g})"
+              f"{res.get('extra', '')}")
+    for c in launches:
+        launches[c] += sum(res["launches"][c] for res in ranks)
+    return out, launches
+
+
+def phase_parallel_rank(args) -> int:
+    """One of phase 10's two gloo ranks on the one card: fit_sharded,
+    fit_rowsharded_shardmap(use_kernel=True) and train_step at BIG, A =
+    PAR_A, on this rank's half of the rows (K1 on 50 000 rows); rank 0
+    holds them to the one-device fit and press.  Prints one JSON line."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from pls_tpu_torch.cv.lso import lso_errors, random_partitions
+    from pls_tpu_torch.models.kernel_pls import fit
+    from pls_tpu_torch.ops import deflate
+    from pls_tpu_torch.parallel import (fit_rowsharded_shardmap, fit_sharded, make_pls_mesh,
+                                        train_step)
+    from pls_tpu_torch.parallel.sharded import shard_rows
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=args.init_method, world_size=args.world_size,
+                            rank=args.rank, timeout=timedelta(seconds=PAR_TIMEOUT))
+    try:
+        mesh = make_pls_mesh(rows=args.world_size, folds=1, device=dev)
+        X, Y = make_big(dev, args.seed)
+        N = BIG[0]
+        parts = random_partitions(torch.Generator(dev).manual_seed(args.seed + 5), N,
+                                  PAR_STEP_TRIALS)
+        train = 3 * N // 4
+        Xl, Yl = shard_rows(X, mesh), shard_rows(Y, mesh)
+        for counts in (deflate.launches, deflate.path_launches):
+            for c in counts:
+                counts[c] = 0
+        calls = {
+            "fit_sharded": lambda: fit_sharded(Xl, Yl, PAR_A, mesh=mesh),
+            "fit_rowsharded_shardmap use_kernel": lambda: fit_rowsharded_shardmap(
+                Xl, Yl, PAR_A, mesh=mesh, use_kernel=True),
+            "train_step": lambda: train_step(Xl, Yl, PAR_A, parts, train, mesh=mesh),
+        }
+        res = {name: event_wall(fn) for name, fn in calls.items()}
+        result = {"launches": dict(deflate.launches), "path_launches": dict(deflate.path_launches)}
+        # timed again, warm, after the counts are read
+        warm = {name: event_wall(fn)[1] for name, fn in calls.items()}
+        if args.rank == 0:
+            ref = fit(X, Y, PAR_A)
+            f_step, press = res["train_step"][0]
+            errs = lso_errors(X, Y, PAR_A, parts, train)
+            press_ref = (errs * errs).sum(1)
+            T = res["fit_rowsharded_shardmap use_kernel"][0].T
+            result["calls"] = {
+                name: {"s": warm[name], "first_s": wall,
+                       "rel_err": coef_rel(f_step if name == "train_step" else f, ref)}
+                for name, (f, wall) in res.items()}
+            result["calls"]["fit_rowsharded_shardmap use_kernel"]["extra"] = (
+                f"; T {tuple(T.shape)} gathered, rel err {rel_err(T, ref.T):.3e}")
+            result["calls"]["train_step"]["extra"] = (
+                f"; press rel err {rel_err(press, press_ref):.3e}")
+            check(tuple(T.shape) == (N, PAR_A) and rel_err(T, ref.T) <= PAR_RTOL,
+                  "two ranks: T gathered off")
+            check(rel_err(press, press_ref) <= PAR_CV_RTOL, "two ranks: press off")
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(result))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of phase 10's two-rank run (parallel.launch.spawn_ranks)
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world-size", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--init-method", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.rank is not None:
+        return phase_parallel_rank(args)
     import pls_tpu_torch
     from pls_tpu_torch.ops import deflate, deflate_variants as dv
     from pls_tpu_torch.tools import kernel_variants as kv
@@ -1509,6 +1778,16 @@ def main() -> int:
           "phase 9 never launched K1 or K2")
     for k in ("deflate_f32", "deflate_bf16"):
         launches[k] += est_launches[k]
+
+    t0 = time.perf_counter()
+    # phase 10 sets the counts to 0 after its one-device references, just
+    # before its sharded calls, and reads them just after; its two ranks'
+    # launches are added from their own counts
+    par_out, par_launches = phase_parallel(deflate, dev, args.seed, fit_walls)
+    print(f"phase 10 launches: {par_launches}; {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(par_out)}")
+    for k in ("deflate_f32", "deflate_bf16"):
+        launches[k] += par_launches[k]
 
     check("jax" not in sys.modules and "pls_tpu" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": [

@@ -22,7 +22,9 @@ the estimators (estimator.py, models/plsda.py) over the model families
 they front (models/robust.py, sparse.py, opls.py, kpls.py, crossdecomp.py,
 plsglm.py), conformal prediction intervals (cv/conformal.py), the T²/SPE
 monitor (models/diagnostics.py), the PLSB export for native consumers
-(export.py) and hyper-parameter tuning (tune.py).
+(export.py) and hyper-parameter tuning (tune.py); the parallel package on
+torch.distributed (parallel/: row-, column- and fold-sharded fits and CV)
+and resumable CV sweeps (cv/resumable.py).
 """
 
 from pls_tpu_torch.types import (

@@ -10,9 +10,10 @@ import json
 import sys
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from pls_tpu_torch.types import KERNEL_TYPE1, METHOD
+from pls_tpu_torch.types import KERNEL_TYPE1, METHOD, default_float_dtype
 
 
 @dataclass
@@ -58,6 +59,16 @@ def resolve_device(device=None, like=None) -> torch.device:
     if isinstance(like, torch.Tensor):
         return like.device
     return default_device()
+
+
+def as_data(X, device=None) -> torch.Tensor:
+    """X as a floating tensor on `device` (None: that of a tensor X, else
+    the card): a floating tensor keeps its dtype, other data takes the
+    device's default float dtype."""
+    device = resolve_device(device, X)
+    if isinstance(X, torch.Tensor) and X.is_floating_point():
+        return X.to(device)
+    return torch.as_tensor(np.asarray(X), dtype=default_float_dtype(device), device=device)
 
 
 def run_pipeline(cfg: PLSRunConfig, *, file=None, device: torch.device | None = None) -> dict:

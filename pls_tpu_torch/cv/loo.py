@@ -3,7 +3,9 @@
 Counterpart of `pls_tpu/cv/loo.py:35-89` (reference `Model::cv_LOO`,
 pls.cpp:469-491).  Fold i refits with row i masked out; a masked fit is
 arithmetically the fit on the N−1 surviving rows, so the folds run as a
-leading batch axis of `kernel_pls.fit_folds`, in chunks of `batch_size`.
+leading batch axis of `kernel_pls.fit_folds`, in chunks of `batch_size`
+(the fold body, `make_loo_fold_fn`, also serves the sharded and the
+resumable LOO).
 Each fold records the held-out row's residual under every truncation
 1..A, in the reference's (M, N, A) layout.
 
@@ -25,6 +27,33 @@ from pls_tpu_torch.types import METHOD, Residual
 from pls_tpu_torch.utils.batching import chunked_map, default_batch_size
 
 
+def make_loo_fold_fn(
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    A: int,
+    method: METHOD = METHOD.KERNEL_TYPE1,
+    *,
+    power_iters: int | None = None,
+    precision: str | None = "highest",
+    x_storage: str | None = None,
+):
+    """The fold body shared by every LOO flavour (local, sharded,
+    resumable; `pls_tpu/cv/loo.py:35-61`): given a batch of row indices
+    (F,), refit with each row masked out in turn and return each held-out
+    row's residuals under every truncation, (F, A, M).  Y is (N, M)."""
+    rows = torch.arange(X.shape[0], device=X.device)
+
+    def folds(idx: torch.Tensor) -> torch.Tensor:
+        masks = rows[None, :] != idx[:, None]
+        f = fit_folds(
+            X, Y, masks, A, method, power_iters=power_iters,
+            precision=precision, x_storage=x_storage,
+        )
+        return residuals_all_components(f, X[idx][:, None, :], Y[idx][:, None, :])[:, 0]
+
+    return folds
+
+
 def cv_loo(
     X: torch.Tensor,
     Y: torch.Tensor,
@@ -42,17 +71,10 @@ def cv_loo(
     N, K = X.shape
     if batch_size is None:
         batch_size = default_batch_size(N, N, K, X.element_size())
-    rows = torch.arange(N, device=X.device)
-
-    def folds(idx: torch.Tensor) -> torch.Tensor:
-        masks = rows[None, :] != idx[:, None]
-        f = fit_folds(
-            X, Y, masks, A, method, power_iters=power_iters,
-            precision=precision, x_storage=x_storage,
-        )
-        return residuals_all_components(f, X[idx][:, None, :], Y[idx][:, None, :])[:, 0]
-
-    errs = chunked_map(folds, rows, batch_size)  # (N, A, M)
+    folds = make_loo_fold_fn(
+        X, Y, A, method, power_iters=power_iters, precision=precision, x_storage=x_storage,
+    )
+    errs = chunked_map(folds, torch.arange(N, device=X.device), batch_size)  # (N, A, M)
     return Residual(errors=errs.permute(2, 0, 1), method="LOO")
 
 

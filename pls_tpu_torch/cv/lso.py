@@ -88,9 +88,36 @@ def cv_lso(
     Residual errors (M, num_trials·test_size, A)."""
     if Y.ndim == 1:
         Y = Y[:, None]
-    N, K = X.shape
-    train_size, test_size = lso_sizes(N, test_fraction)
+    N = X.shape[0]
+    train_size, _ = lso_sizes(N, test_fraction)
     partitions = _partitions(N, num_trials, generator, key, partitions, X.device)
+    errors = lso_errors(
+        X, Y, A, partitions, train_size, method, batch_size=batch_size,
+        power_iters=power_iters, precision=precision, x_storage=x_storage,
+    )
+    return Residual(errors=errors, method="LSO")
+
+
+def lso_errors(
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    A: int,
+    partitions: torch.Tensor,
+    train_size: int,
+    method: METHOD = METHOD.KERNEL_TYPE1,
+    *,
+    batch_size: int | None = None,
+    power_iters: int | None = None,
+    precision: str | None = "highest",
+    x_storage: str | None = None,
+) -> torch.Tensor:
+    """The held-out errors (M, trials·test, A) of the trials of
+    `partitions` (trials, N) on the device of X, the first `train_size`
+    entries of a row being its training rows; Y is (N, M).  `cv_lso`'s
+    body, which the fold-sharded LSO (parallel/sharded.py) runs on its
+    share of the trials."""
+    N, K = X.shape
+    num_trials = partitions.shape[0]
     if batch_size is None:
         batch_size = default_batch_size(num_trials, N, K, X.element_size())
 
@@ -105,9 +132,7 @@ def cv_lso(
         return residuals_all_components(f, X[test_idx], Y[test_idx])  # (F, test, A, M)
 
     errs = chunked_map(trials, partitions, batch_size)  # (trials, test, A, M)
-    M = Y.shape[1]
-    errors = errs.permute(3, 0, 1, 2).reshape(M, num_trials * test_size, A)
-    return Residual(errors=errors, method="LSO")
+    return errs.permute(3, 0, 1, 2).reshape(Y.shape[1], num_trials * (N - train_size), A)
 
 
 def cv_lso_downdate(

@@ -23,11 +23,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pls_tpu_torch.config import resolve_device
+from pls_tpu_torch.config import as_data
 from pls_tpu_torch.models.kernel_pls import fit as _fit
 from pls_tpu_torch.models.predict import _promote, coefficients, vip
 from pls_tpu_torch.preprocess import ZScorer
-from pls_tpu_torch.types import KERNEL_TYPE1, METHOD, default_float_dtype
+from pls_tpu_torch.types import KERNEL_TYPE1, METHOD
 
 
 def _sklearn_tags(kind: str):
@@ -44,16 +44,6 @@ def _sklearn_tags(kind: str):
         pass
 
     return _Shim().__sklearn_tags__()
-
-
-def as_data(X, device=None) -> torch.Tensor:
-    """X as a floating tensor on `device` (None: that of a tensor X, else
-    the card): a floating tensor keeps its dtype, other data takes the
-    device's default float dtype."""
-    device = resolve_device(device, X)
-    if isinstance(X, torch.Tensor) and X.is_floating_point():
-        return X.to(device)
-    return torch.as_tensor(np.asarray(X), dtype=default_float_dtype(device), device=device)
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

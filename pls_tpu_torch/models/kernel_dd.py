@@ -37,9 +37,15 @@ def fit_dd(
     """Kernel type 1 (or type 2) on X (N, K) and Y (N, M) rounded to
     float32, with the loop in float64: what `fit(..., precision="dd")`
     runs.  X and Y may carry a leading fold axis."""
+    return _fit_dd(X, Y, A, type1, power_iters)
+
+
+def _fit_dd(X, Y, A, type1, power_iters, reduce=None) -> PLSFit:
+    """`fit_dd`, with `reduce` as in `kernel_pls._fit_kernel` (a
+    row-sharded fit)."""
     if Y.ndim == X.ndim - 1:
         Y = Y[..., None]
-    wide = _fit_kernel(_f64_of_f32(X), _f64_of_f32(Y), A, type1, power_iters, "dd")
+    wide = _fit_kernel(_f64_of_f32(X), _f64_of_f32(Y), A, type1, power_iters, "dd", reduce)
     return _cast(wide, _state_dtype(X.dtype))
 
 

@@ -123,9 +123,12 @@ def _state_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
-def _fit_method(X, Y, A, method, power_iters, precision) -> PLSFit:
+def _fit_method(X, Y, A, method, power_iters, precision, reduce=None) -> PLSFit:
     """One fit, or a batch on a leading fold axis, of masked and weighted
-    X/Y (X possibly bf16) by `method`."""
+    X/Y (X possibly bf16) by `method`; `reduce` as in `_fit_kernel`
+    (parallel/sharded.py's row-sharded fits pass it, kernel methods only)."""
+    if reduce is not None and method not in KERNEL_METHODS:
+        raise ValueError(f"a row-sharded fit takes the kernel methods, not {method}")
     if method == METHOD.NIPALS:
         from pls_tpu_torch.models.nipals import fit_nipals
 
@@ -136,10 +139,10 @@ def _fit_method(X, Y, A, method, power_iters, precision) -> PLSFit:
         return fit_simpls(X, Y, A, power_iters=power_iters, precision=precision)
     type1 = method == METHOD.KERNEL_TYPE1
     if precision == "dd":
-        from pls_tpu_torch.models.kernel_dd import fit_dd
+        from pls_tpu_torch.models.kernel_dd import _fit_dd
 
-        return fit_dd(X, Y, A, type1, power_iters=power_iters)
-    return _fit_kernel(X, Y, A, type1=type1, power_iters=power_iters, precision=precision)
+        return _fit_dd(X, Y, A, type1, power_iters, reduce)
+    return _fit_kernel(X, Y, A, type1, power_iters, precision, reduce)
 
 
 def fit(
@@ -248,6 +251,7 @@ def _fit_kernel(
     type1: bool,
     power_iters: int | None,
     precision: str | None,
+    reduce=None,
 ) -> PLSFit:
     """Kernel algorithms #1/#2 (reference pls.cpp:400-435), per component:
       M==1:  w = XY                     else: q₀ = dom.eigvec(XYᵀXY), w = XY q₀
@@ -257,11 +261,17 @@ def _fit_kernel(
     X is (N, K) or (F, N, K); Y is (N, M) or (F, N, M).  The precision
     modes of `F64_PRECISIONS` run the loop on X and Y (rounded to X's
     dtype, as XᵀY rounds them) widened to float64, and return the state in
-    X's state dtype."""
+    X's state dtype.
+
+    `reduce` is the over-rows hook of the row-sharded fits
+    (parallel/sharded.py, the JAX package's psums in `sharded.py:159-189`):
+    given, it sums XᵀY (and XᵀX for type 2) once, and for type 1 the fused
+    [p; tt] of each component's local pass, one all-reduce of K+1 values;
+    type 2's loop needs no other sum.  None: every row is here."""
     acc = _state_dtype(X.dtype)
     if precision in F64_PRECISIONS and X.dtype != torch.float64:
         wide = _fit_kernel(X.to(torch.float64), Y.to(X.dtype).to(torch.float64), A, type1,
-                           power_iters, precision)
+                           power_iters, precision, reduce)
         return _cast(wide, acc)
     batch = X.shape[:-2]
     K = X.shape[-1]
@@ -270,6 +280,9 @@ def _fit_kernel(
         Xa = X.to(acc)  # widened copy only for bf16 X
         XY = Xa.mT @ Y.to(X.dtype).to(acc)
         XX = None if type1 else Xa.mT @ Xa
+        if reduce is not None:
+            XY = reduce(XY)
+            XX = None if type1 else reduce(XX)
         if X.ndim == 2 and X.dtype != acc:
             Xa = None  # one fit of bf16 X streams X itself from here on
         Pb = X.new_zeros((*batch, A, K), dtype=acc)
@@ -289,6 +302,9 @@ def _fit_kernel(
             r = w - (Rb.mT @ (Pb @ w[..., None]))[..., 0]
             if type1:
                 t, tt, p = _t_tt_p(X, Xa, r)
+                if reduce is not None:
+                    stats = reduce(torch.cat([p, tt[..., None]], -1))
+                    p, tt = stats[..., :K], stats[..., K]
                 Ts.append(t)
             else:
                 p = (XX @ r[..., None])[..., 0]

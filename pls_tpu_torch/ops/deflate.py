@@ -31,8 +31,9 @@ The cross-block sum of p is two-stage on every path (each block owns a row
 of a (G, K) partial buffer; a second kernel sums the rows in fixed order)
 and not float atomics, so results are bit-identical from run to run.
 
-`deflate_pass` is the one dispatcher.  A CPU tensor, or float64 X (the
-kernel is float32/bfloat16, as on the TPU), takes the plain version;
+`deflate_pass` is the one dispatcher.  A CPU tensor, float64 X (the
+kernel is float32/bfloat16, as on the TPU) or X of no rows takes the
+plain version;
 float32 or bfloat16 X on CUDA launches the kernel or raises.  The TPU
 kernel's row-tile policy (`_row_tile`, `pad_rows_to_tile`,
 `pallas_supported`) has no counterpart: the CUDA kernels mask the ragged
@@ -312,8 +313,10 @@ def _launch(X: torch.Tensor, r: torch.Tensor, planner: Callable[..., Plan]):
 
 def deflate_pass(X: torch.Tensor, r: torch.Tensor):
     """(t, tt, p) of one component: the plain version for a CPU tensor or
-    float64 X, the CUDA kernel for float32/bfloat16 X on CUDA."""
-    if X.device.type == "cpu" or X.dtype == torch.float64:
+    float64 X, the CUDA kernel for float32/bfloat16 X on CUDA.  X of no
+    rows (a row-sharded fit's empty last shard) launches nothing: p and tt
+    are zeros."""
+    if X.device.type == "cpu" or X.dtype == torch.float64 or X.shape[0] == 0:
         return deflate_pass_plain(X, r)
     return deflate_pass_cuda(X, r)
 

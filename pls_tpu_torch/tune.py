@@ -111,7 +111,7 @@ def _grid_search_cv_folds(make_estimator, param_grid, X, Y, splits, batch_size):
     per setting of the other parameters, one masked fit per fold at the
     largest n_components, every n_components read off it; the folds in
     batches of `fold_batch_size`."""
-    from pls_tpu_torch.estimator import as_data
+    from pls_tpu_torch.config import as_data
     from pls_tpu_torch.utils.batching import fold_batch_size
 
     N = X.shape[0]
@@ -235,7 +235,7 @@ def nested_cv_components(
     else the card)."""
     from pls_tpu_torch.cv.kfold import cv_kfold
     from pls_tpu_torch.cv.validation import optimal_num_components, validation
-    from pls_tpu_torch.estimator import as_data
+    from pls_tpu_torch.config import as_data
     from pls_tpu_torch.models.kernel_pls import fit
     from pls_tpu_torch.models.predict import residuals
     from pls_tpu_torch.types import METHOD, RESS

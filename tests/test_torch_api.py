@@ -74,3 +74,12 @@ def test_known_gap_modules_are_modules_of_the_jax_package():
     for module in GAP_MODULES:
         importlib.import_module(module)
     assert GAP_NAMES <= set(pls_tpu.__all__)
+
+
+def test_parallel_names_are_the_jax_packages():
+    import pls_tpu.parallel
+    import pls_tpu_torch.parallel
+
+    assert pls_tpu_torch.parallel.__all__ == pls_tpu.parallel.__all__
+    for name in pls_tpu_torch.parallel.__all__:
+        assert getattr(pls_tpu_torch.parallel, name).__module__.startswith("pls_tpu_torch.parallel")
