@@ -11,7 +11,8 @@ Phases, each of which fails the run:
   2. kernel vs plain: the f32 (K1) and bf16 (K2) kernels against
      `deflate_pass_plain` on the same inputs and against f64 truth on the
      card, at every shape the main path gives them (toy 10×15, nir 60×401,
-     100000×5000; phase 10's 10000×1000 and each of two ranks' 50000×5000)
+     100000×5000; phase 10's 10000×1000 and each of two ranks' 50000×5000;
+     phase 11's 100000×10000, 10000×5000, 1000×5000, 2000×500 and 45×401)
      and at (130, 96), (300, 401), (4096, 5000), (65536,
      2048), a ragged (4099, 5000), K = 8 (1000, 8), a bf16 K too wide for
      the column-owning path (1024, 16384) and a K too wide for the staged
@@ -124,7 +125,32 @@ Phases, each of which fails the run:
      `fit_rowsharded_shardmap(use_kernel=True)` and `train_step` at
      100000×5000×10, A = 20, each rank launching K1 on its own 50000 rows,
      rank 0 holding them to the one-device fit and press (1e-5, 2e-5).
-     One line a call: CUDA-event wall, launches by path, error.
+     One line a call: CUDA-event wall, launches by path, error;
+ 11. the rest of the public API on phase 4's data (100000×5000×10), each
+     call against the same call in float64 on the card (1e-3 closed
+     form, 5e-3 iterative), one line a call with the float32 call's
+     CUDA-event wall and K1 launches: `fit_mbpls` (5 blocks of 1000, A =
+     20, K1 20), `fit_oplsda` (two classes from Y[:, 0]'s sign, n_ortho =
+     2, K1 1) and `OPLSDAClassifier`, `fit_plscox` (A = 5, K1 5;
+     `concordance_index` on 5000 rows), `permutation_test` (A = 20, 20
+     permutations, K1 420, the draws jax_prng's), `ipls` (20 intervals,
+     A = 10, k = 5, K1 1050) and `ipls_forward` (10000 rows, 3 intervals
+     at most), `uve_pls` (k = 10, A = 10; K1 at K = 10000),
+     `coefficient_significance` (1000 rows, A = 10), `kennard_stone`,
+     `spxy` (1000 of 100000) and `duplex` (1000 of 5000) held by their
+     picks' max-min distances (1e-5), `direct_standardization`,
+     `piecewise_ds` and `epo` (1000 paired rows), `fit_npls`
+     (100000×50×100, A = 5), `fit_o2pls` (100000×5000 against 500
+     columns, both made from the joint and specific latents O2PLS models), `fit_nipals_missing` (5 % NaN; iterations per component)
+     and `impute_pls` (2000×500), `fit_plspm` (10 blocks of 500, one in
+     mode B, the path scheme, on structural-model data of the same size)
+     and `bootstrap_plspm` (200 replicates of 10000×500), `RecursivePLS` (10 chunks, λ = 1 and 0.99); checkpoints
+     of each registered type fitted, both formats, bit-equal under build/
+     (removed); `fit_health` and `roofline_report` of one K1 pass; then
+     nir's example flows (Kennard-Stone split, savgol + SNV, ipls_forward,
+     piecewise_ds) in float32 on the card against the port's float64 run
+     on the CPU.  The cuts (rows where a call is O(N²) or runs N fits) are
+     the constants IPLS_FWD_N through BOOT.
 
 The K1/K2 launch counts are set to 0 just before phase 3 and read just
 after phase 4; the K3-K5 counts just before and after phase 6; all of
@@ -132,14 +158,17 @@ them just before and after phase 7, where they stay 0, and just before
 and after phases 8 and 9, whose K1 (and phase 9's K2) launches join phase
 3-4's in the record; phase 10 sets them to 0 after its one-device
 references and reads them after its sharded calls, and its two ranks
-report their own counts, all of which join the record.  The last
+report their own counts, all of which join the record; phase 11 sets
+them to 0 before its calls and reads them after, and its K1 launches
+(not those `roofline_report` times) join the record.  The last
 two lines of stdout are the kernels' JSON record (K1-K5; ms is the
 back-to-back time per call, K1/K2 at 100000×5000, K3-K5 of the best
 variant at 65536×2048 by the sweep's chain slope, timed again back to
 back; K5's the faster of its two designs' best, timed in turns; each
 with bound_ms, the larger of its bytes over 3.35 TB/s and its flops over
 67 TFLOP/s f32, and library_ms) and {"ok": true, "device": {...}};
-the card's nvidia-smi line is printed in phase 1.  Without a CUDA device,
+the card's nvidia-smi line is printed in phase 1 and again just before
+the kernels' record.  Without a CUDA device,
 or outside a checkout of the repo, the script exits non-zero and prints
 neither.
 """
@@ -187,7 +216,12 @@ BIG = (100_000, 5_000)
 # every (N, K) the main path hands the kernel: toy, nir, the real-size fit,
 # and phase 10's: train_step's global fit at PAR_CV (world size 1) and each
 # of the two gloo ranks' half of BIG's rows
-MAIN_PATH_SHAPES = [(10, 15), (60, 401), BIG, (10_000, 1_000), (BIG[0] // 2, BIG[1])]
+MAIN_PATH_SHAPES = [(10, 15), (60, 401), BIG, (10_000, 1_000), (BIG[0] // 2, BIG[1]),
+                    # and phase 11's: UVE's X with its noise columns, ipls_forward's
+                    # and the jackknife's full fit, impute_pls's NIPALS, nir's
+                    # Kennard-Stone calibration rows
+                    (BIG[0], 2 * BIG[1]), (10_000, 5_000), (1_000, 5_000), (2_000, 500),
+                    (45, 401)]
 # K2's column-owning path: the sweep's shape, a ragged last tile, K = 8;
 # then a bf16 K past it (row-staged) and a K past the staged form (wide)
 KERNEL_SHAPES = [(130, 96), (300, 401), (4096, 5000), (65_536, 2_048), (4099, 5000), (1000, 8),
@@ -285,6 +319,27 @@ PAR_PAIRS = 10  # (one-device fit, sharded fit) pairs timed at world size 1
 # another size (the LOO/LSO folds; 2.95e-6 at most measured, PERF.md §6)
 PAR_RTOL = 1e-5
 PAR_CV_RTOL = 2e-5
+
+# phase 11: the rest of the public API on phase 4's data (make_big).  Each
+# call against the same call in float64 on the card: API_RTOL for the
+# closed-form fits, API_ITER_RTOL for the iterative ones
+API_A = 20  # fit_mbpls, permutation_test, RecursivePLS: BASELINE.json's 20 components
+API_RTOL = 1e-3  # FIT_COEF_RTOL
+API_ITER_RTOL = 5e-3  # METHOD_COEF_RTOL
+PICK_RTOL = 1e-5  # sample selection: each pick's max-min distance against float64's picks'
+N_PERM = 20
+IPLS = (20, 10, 5)  # intervals, A, folds
+# the cuts: rows where a call is O(N²) or runs N fits (PERF.md §4)
+IPLS_FWD_N = 10_000  # ipls_forward: every round refits every remaining candidate
+JACK_N = 1_000  # the jackknife: N fits
+PICKS = 1_000
+DUPLEX_N = 5_000  # duplex assigns every row, one pass over X a row
+COX_C_N = 5_000  # concordance_index: N² host memory
+TRANSFER_N = 1_000  # paired transfer rows (master and slave), 5000 channels
+IMPUTE = (2_000, 500)  # impute_pls: n_outer dense NIPALS fits
+BOOT = (200, 10_000, 500)  # bootstrap_plspm: replicates, rows, columns (B copies)
+NIPALS_TOL = 1e-6  # the missing-data NIPALS and PLS-PM loops: a float32 tolerance
+RLS_CHUNKS = 10
 
 # (kernel name, its source in pls_tpu_torch/csrc, the TPU kernel it
 # replaces, the launch counters that are its launches)
@@ -1696,6 +1751,535 @@ def phase_parallel_rank(args) -> int:
     return 0
 
 
+def rel_any(a, b, align: bool = False) -> float:
+    """max |a − b| / max |b| in float64 over tensors or arrays, columns
+    sign-aligned with `align` (a free eigenvector or singular-vector sign)."""
+    a = a.double().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a, np.float64)
+    b = b.double().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b, np.float64)
+    return table_dist(a, b, align)
+
+
+def maxmin_sequence(Zs, picks) -> np.ndarray:
+    """Each pick's joint distance to the nearest earlier pick (the seed
+    pair's own distance first), in float64: the sequence max-min selection
+    maximises, over blocks Zs of float64 coordinates and their scales."""
+    idx = torch.as_tensor(np.asarray(picks), device=Zs[0][0].device)
+    D = sum(torch.cdist(Z[idx], Z[idx]) / s for Z, s in Zs)
+    D = D + torch.triu(torch.full_like(D, torch.inf))
+    seq = D.min(1).values[1:]
+    return seq.cpu().numpy()
+
+
+def sem_data(dev, seed: int, N: int, per_block: int, L: int) -> torch.Tensor:
+    """A structural-equation model's manifests, z-scored: latent ξ₀ ~ N(0, 1),
+    ξᵢ = 0.5 ξᵢ₋₁ + 0.3 ξ₀ + 0.8 ε, each measured by `per_block` columns
+    λ ξ_b + ε (λ uniform on [0.3, 0.9]), made on the card from the seed."""
+    from pls_tpu_torch.ops.stats import colwise_z_scores
+
+    g = torch.Generator(dev).manual_seed(seed + 14)
+    xi = [torch.randn(N, generator=g, device=dev)]
+    for _ in range(1, L):
+        xi.append(0.5 * xi[-1] + 0.3 * xi[0] + 0.8 * torch.randn(N, generator=g, device=dev))
+    lam = 0.3 + 0.6 * torch.rand((L, per_block), generator=g, device=dev)
+    return colwise_z_scores(torch.cat([
+        xi[b][:, None] * lam[b] + torch.randn((N, per_block), generator=g, device=dev)
+        for b in range(L)], 1))
+
+
+def o2pls_data(dev, seed: int, N: int, K: int, M: int):
+    """Two z-scored blocks of the model O2PLS fits, made on the card: five
+    joint latent directions (strengths 3 to 1.4), two specific to X (4,
+    3.4) and two to Y (2, 1.6), noise 0.5."""
+    from pls_tpu_torch.ops.stats import colwise_z_scores
+
+    g = torch.Generator(dev).manual_seed(seed + 12)
+    lat = torch.randn((N, 9), generator=g, device=dev) * torch.tensor(
+        [3.0, 2.6, 2.2, 1.8, 1.4, 4.0, 3.4, 2.0, 1.6], device=dev)
+    X = lat[:, :7] @ torch.randn((7, K), generator=g, device=dev)
+    X += 0.5 * torch.randn((N, K), generator=g, device=dev)
+    Y = torch.cat([lat[:, :5], lat[:, 7:]], 1) @ torch.randn((7, M), generator=g, device=dev)
+    Y += 0.5 * torch.randn((N, M), generator=g, device=dev)
+    return colwise_z_scores(X), colwise_z_scores(Y)
+
+
+def phase_api(deflate, dev, seed: int) -> dict:
+    """Phase 11: the rest of the public API at 100000×5000×10 (make_big).
+    One line a call: the float32 call's CUDA-event wall and K1 launches, the
+    same call's in float64, the error.  Returns walls and errors."""
+    import pls_tpu_torch as tt
+    from pls_tpu_torch import sampling
+    from pls_tpu_torch.models import missing, oplsda
+    from pls_tpu_torch.models.predict import coefficients, explained_variance
+    from pls_tpu_torch.ops.stats import colwise_z_scores
+    from pls_tpu_torch.utils import jax_prng, profiling
+    from pls_tpu_torch.utils.debug import fit_health
+
+    out: dict = {}
+    laps, t_last = {}, [time.perf_counter()]
+
+    def lap(name):  # host seconds of each part of the phase
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        laps[name] = round(now - t_last[0], 3)
+        t_last[0] = now
+
+    X, Y = make_big(dev, seed)
+    X64, Y64 = X.double(), Y.double()
+    N, K = BIG
+    lap("data")
+
+    def run(name, f32, f64, err, tol, k1=None, note=None):
+        """f32() and f64(), the same call on X and X64; err(r32, r64) held
+        to tol; k1 the float32 call's K1 launches, where it is fixed."""
+        before = deflate.launches["deflate_f32"]
+        r32, w32 = event_wall(f32)
+        d = deflate.launches["deflate_f32"] - before
+        r64, w64 = event_wall(f64)
+        e = err(r32, r64)
+        extra = note(r32, r64) if note else ""
+        out[name] = {"s": w32, "f64_s": w64, "k1": d, "rel_err": e}
+        print(f"  {name}: f32 {w32:.4f} s, K1 {d}; f64 {w64:.4f} s; rel err {e:.3e} "
+              f"(bound {tol:g}){extra}")
+        check(e <= tol, f"phase 11 {name}: rel err {e:.2e} > {tol}")
+        check(k1 is None or d == k1, f"phase 11 {name}: {d} K1 launches, expected {k1}")
+        return r32, r64
+
+    # multiblock: five blocks of 1000 columns, one K1 fit of their concatenation
+    def mb(Z, W):
+        blocks = [Z[:, b * 1000:(b + 1) * 1000] for b in range(5)]
+        f = tt.fit_mbpls(blocks, W, API_A)
+        new = [B[:N_NEW] for B in blocks]
+        return f, (coefficients(f.pls), tt.block_importance(f), tt.super_scores(f, new),
+                   tt.predict_mbpls(f, new))
+
+    (mb32, _), _ = run(
+        "fit_mbpls 5×1000 A=20 (block_importance, super_scores, predict_mbpls)",
+        lambda: mb(X, Y), lambda: mb(X64, Y64),
+        lambda a, b: max(rel_any(x, y, i == 2) for i, (x, y) in enumerate(zip(a[1], b[1]))),
+        API_RTOL, k1=API_A)
+    lap("mbpls")
+
+    # OPLS-DA: two classes from the sign of Y[:, 0], two orthogonal components
+    labels = (Y[:, 0] > 0).long()
+
+    def oda(Z):
+        f = tt.fit_oplsda(Z, labels, 2, 2)
+        d = oplsda.decision_values(f, Z[:N_NEW])
+        Xf, _ = tt.opls_correct(f, Z)
+        cov, corr = tt.s_plot(Xf, Xf @ f.pls.R[:, 0])
+        return f, d, oplsda.predict_classes(f, Z[:N_NEW]), torch.stack([cov, corr], 1)
+
+    def oda_err(a, b):
+        s = float(torch.sign((a[3][:, 0].double() * b[3][:, 0]).sum()))  # t's free sign
+        return max(rel_any(a[1], b[1]), rel_any(s * a[3].double(), b[3]))
+
+    def margin_classes(a, b):  # equal classes wherever the decision is not a near-tie
+        clear = (b[1][:, 1] - b[1][:, 0]).abs() > API_RTOL * b[1].abs().max()
+        diff = int(((a[2] != b[2]) & clear).sum())
+        check(diff == 0, f"phase 11 fit_oplsda: {diff} classes differ")
+        return f"; classes equal ({int(clear.sum())} of {N_NEW} clear of a tie)"
+
+    (oda32, *_), _ = run("fit_oplsda n_ortho=2 A=1 (predict_classes, s_plot)",
+                         lambda: oda(X), lambda: oda(X64), oda_err, API_RTOL, k1=1,
+                         note=margin_classes)
+    y_np = labels.cpu().numpy()
+
+    def clf(Z):
+        est = tt.OPLSDAClassifier(1, 2).fit(Z, y_np)
+        return est, est.decision_function(Z[:N_NEW]), est.predict(Z[:N_NEW])
+
+    run("OPLSDAClassifier(1, 2).fit/predict", lambda: clf(X), lambda: clf(X64),
+        lambda a, b: rel_any(a[1], b[1]), API_RTOL, k1=1,
+        note=lambda a, b: f"; predictions equal on {int((a[2] == b[2]).sum())} of {N_NEW}")
+    lap("oplsda")
+
+    # PLS-Cox: survival times from the latent response, about 30 % censored
+    g = torch.Generator(dev).manual_seed(seed + 11)
+    times = -torch.log(torch.rand(N, generator=g, device=dev, dtype=torch.float64)) * \
+        torch.exp(-0.5 * Y64[:, 0])
+    event = (torch.rand(N, generator=g, device=dev) > 0.3).double()
+
+    def cox(Z):
+        f = tt.fit_plscox(Z, times, event, 5)
+        return f, tt.predict_plscox(f, Z[:N_NEW])
+
+    (cox32, _), (cox64, _) = run(
+        "fit_plscox A=5 (Newton 20 steps; predict_plscox)", lambda: cox(X), lambda: cox(X64),
+        lambda a, b: max(rel_any(a[0].coef, b[0].coef), rel_any(a[1], b[1])), API_ITER_RTOL,
+        k1=5)
+    c = [tt.concordance_index(times[:COX_C_N], event[:COX_C_N],
+                              tt.predict_plscox(f, Z[:COX_C_N])) for f, Z in
+         ((cox32, X), (cox64, X64))]
+    print(f"  concordance_index on {COX_C_N} rows: f32 {c[0]:.6f}, f64 {c[1]:.6f}; censored "
+          f"{float(1 - event.mean()):.3f}")
+    check(abs(c[0] - c[1]) <= API_ITER_RTOL, "phase 11 concordance_index disagrees")
+    lap("plscox")
+
+    # the permutation test: 21 un-batched fits, the permutations jax_prng's
+    p32, _ = run(
+        f"permutation_test A={API_A}, {N_PERM} permutations",
+        lambda: tt.permutation_test(X, Y, API_A, N_PERM, seed),
+        lambda: tt.permutation_test(X64, Y64, API_A, N_PERM, seed),
+        lambda a, b: max(rel_any(torch.cat([a[0][None], a[1]]), torch.cat([b[0][None], b[1]])),
+                         abs(float(a[2]) - float(b[2]))),
+        API_RTOL, k1=(N_PERM + 1) * API_A,
+        note=lambda a, b: f"; R² {float(a[0]):.5f}, null max {float(a[1].max()):.3e}, "
+                          f"p {float(a[2]):.4f}")
+    perm0 = torch.as_tensor(jax_prng.permutation(jax_prng.split(seed, N_PERM)[0], N),
+                            device=dev)
+    r2_0 = float(explained_variance(tt.fit(X, Y[perm0], API_A), X, Y[perm0]).mean())
+    gaps = (p32[1].double() - r2_0).abs() / abs(r2_0)
+    print(f"  permutation 0 = jax_prng.permutation(split({seed}, {N_PERM})[0], {N}): "
+          f"a direct fit's R² {r2_0:.6e} vs the test's {float(p32[1][0]):.6e}, rel "
+          f"{float(gaps[0]):.2e} (the other permutations' {float(gaps[1:].min()):.2e} or more)")
+    check(float(gaps[0]) <= 1e-4 and float(gaps[0]) < float(gaps[1:].min()),
+          "phase 11: the permutation test's draws are not jax_prng's")
+    lap("permutation_test")
+
+    # iPLS: 20 intervals and the full spectrum, 5 folds, un-batched K1 fits
+    n_int, A_ipls, k_ipls = IPLS
+
+    def ip_err(a, b):
+        check(a.best_interval == b.best_interval and a.best_ncomp == b.best_ncomp,
+              "phase 11 ipls: the best interval differs")
+        return max(rel_any(a.rmsecv, b.rmsecv), rel_any(a.global_rmsecv, b.global_rmsecv))
+
+    run(f"ipls {n_int} intervals A={A_ipls} k={k_ipls}",
+        lambda: tt.ipls(X, Y, n_int, A_ipls, k_ipls, key=seed),
+        lambda: tt.ipls(X64, Y64, n_int, A_ipls, k_ipls, key=seed), ip_err, API_RTOL,
+        k1=(n_int + 1) * k_ipls * A_ipls,
+        note=lambda a, b: f"; best interval {a.best_interval} at {a.best_ncomp} components")
+    n = IPLS_FWD_N
+
+    def fwd_err(a, b):
+        check(a.selected == b.selected and a.ncomp == b.ncomp,
+              f"phase 11 ipls_forward: picks {a.selected} vs {b.selected}")
+        return rel_any(a.rmsecv_path, b.rmsecv_path)
+
+    run(f"ipls_forward {n}×{K} max_intervals=3",
+        lambda: tt.ipls_forward(X[:n], Y[:n], n_int, A_ipls, k_ipls, key=seed, max_intervals=3),
+        lambda: tt.ipls_forward(X64[:n], Y64[:n], n_int, A_ipls, k_ipls, key=seed,
+                                max_intervals=3),
+        fwd_err, API_RTOL, note=lambda a, b: f"; selected {a.selected}, {a.ncomp} components")
+    lap("ipls")
+
+    # UVE: X with K noise columns (100000×10000), 10 folds, un-batched K1 fits.
+    # float32 and float64 draw their own noise (32- and 64-bit draws): the
+    # real variables' reliability is held; the cutoffs are two noise maxima
+    def uve_note(a, b):
+        lo, hi = sorted((a.cutoff, b.cutoff))
+        clear = (b.reliability < lo * (1 - API_ITER_RTOL)) | (b.reliability > hi * (1 + API_ITER_RTOL))
+        diff = int(((a.selected != b.selected) & clear).sum())
+        check(diff == 0, f"phase 11 uve_pls: {diff} selections differ away from the cutoffs")
+        return (f"; cutoff f32 {a.cutoff:.4g} f64 {b.cutoff:.4g}, selected {int(a.selected.sum())}"
+                f" / {int(b.selected.sum())}, equal wherever clear of the cutoffs")
+
+    run("uve_pls k=10 A=10 (X with 5000 noise columns)",
+        lambda: tt.uve_pls(X, Y, 10, 10, key=seed), lambda: tt.uve_pls(X64, Y64, 10, 10, key=seed),
+        lambda a, b: rel_any(a.reliability, b.reliability), API_ITER_RTOL, k1=10 * 10,
+        note=uve_note)
+    torch.cuda.empty_cache()
+    lap("uve_pls")
+
+    # the jackknife on the first JACK_N rows: its folds in batches of copies
+    n = JACK_N
+
+    def jk_note(a, b):
+        return (f"; se rel {rel_any(a[1], b[1]):.3e}, t rel {rel_any(a[2], b[2]):.3e}, "
+                f"{int(((a[3] < 0.05) != (b[3] < 0.05)).sum())} of {a[3].numel()} "
+                f"p < 0.05 calls differ")
+
+    run(f"coefficient_significance {n}×{K} A=10 ({n} jackknife fits)",
+        lambda: tt.coefficient_significance(X[:n], Y[:n], 10),
+        lambda: tt.coefficient_significance(X64[:n], Y64[:n], 10),
+        lambda a, b: rel_any(a[0], b[0]), API_RTOL, k1=10, note=jk_note)
+    lap("jackknife")
+
+    # sample selection, tie-aware: each pick's max-min distance (in float64)
+    # against the float64 call's picks'
+    def seq_err(blocks):
+        def err(a, b):
+            sa, sb = maxmin_sequence(blocks, a), maxmin_sequence(blocks, b)
+            return float(np.abs(sa - sb).max() / np.abs(sb).max())
+        return err
+
+    def same(a, b):
+        return f"; {int(np.sum(np.asarray(a) == np.asarray(b)))} of {len(b)} picks equal in place"
+
+    _, ks64 = run(f"kennard_stone {PICKS} of {N}", lambda: tt.kennard_stone(X, PICKS),
+                  lambda: tt.kennard_stone(X64, PICKS), seq_err([(X64, 1.0)]), PICK_RTOL,
+                  note=same)
+    # SPXY's metric: each block over its largest pairwise distance (float64):
+    # X's farthest pair is Kennard-Stone's seed pair
+    (Yc,), (sq,) = sampling._prep_blocks(Y64)
+    i, j = sampling._farthest_pair((Yc,), (sq,))
+    scales = [float(torch.linalg.vector_norm(X64[ks64[0]] - X64[ks64[1]])),
+              float(torch.linalg.vector_norm(Yc[i] - Yc[j]))]
+    run(f"spxy {PICKS} of {N}", lambda: tt.spxy(X, Y, PICKS), lambda: tt.spxy(X64, Y64, PICKS),
+        seq_err([(X64, scales[0]), (Y64, scales[1])]), PICK_RTOL, note=same)
+    n = DUPLEX_N
+
+    def dup_err(a, b):
+        return max(seq_err([(X64[:n], 1.0)])(a[i], b[i]) for i in (0, 1))
+
+    run(f"duplex {PICKS} of {n}", lambda: tt.duplex(X[:n], PICKS),
+        lambda: tt.duplex(X64[:n], PICKS), dup_err, PICK_RTOL,
+        note=lambda a, b: same(a[0], b[0]))
+    lap("sampling")
+
+    # calibration transfer: TRANSFER_N paired rows of 5000 channels; the
+    # slave a smooth channel shift and gain of the master
+    m = TRANSFER_N
+    j = torch.arange(K, device=dev, dtype=torch.float64)
+
+    def slave(M):
+        gain = (1.0 + 0.05 * torch.sin(2 * torch.pi * j / K)).to(M.dtype)
+        return gain * (0.7 * M + 0.3 * torch.roll(M, 1, 1)) + 0.02
+
+    new32, new64 = slave(X[m:m + N_NEW]), slave(X64[m:m + N_NEW])
+    for name, f32, f64 in (
+            ("direct_standardization ridge=1", lambda: tt.direct_standardization(
+                X[:m], slave(X[:m]), 1.0), lambda: tt.direct_standardization(
+                X64[:m], slave(X64[:m]), 1.0)),
+            ("piecewise_ds window=5 A=2", lambda: tt.piecewise_ds(X[:m], slave(X[:m]), 5, 2),
+             lambda: tt.piecewise_ds(X64[:m], slave(X64[:m]), 5, 2))):
+        run(f"{name} ({m}×{K}; apply_transfer)", f32, f64,
+            lambda a, b: rel_any(tt.apply_transfer(a, new32), tt.apply_transfer(b, new64)),
+            API_RTOL, k1=0)
+
+    def epo_of(M):
+        return tt.epo(tt.epo_difference_matrix(M, slave(M)), 2)
+
+    run(f"epo g=2 ({2 * m}×{K} differences; the filter on new rows)", lambda: epo_of(X[:m]),
+        lambda: epo_of(X64[:m]),
+        lambda a, b: max(rel_any(a(new32), b(new64)), rel_any(a.sv_ratio, b.sv_ratio)),
+        API_RTOL, k1=0)
+    lap("transfer")
+
+    # N-PLS: X as 100000×50×100
+    X3, X3_64 = X.view(N, 50, 100), X64.view(N, 50, 100)
+    run("fit_npls 100000×50×100 A=5 (predict_npls)",
+        lambda: tt.predict_npls(tt.fit_npls(X3, Y, 5), X3[:N_NEW]),
+        lambda: tt.predict_npls(tt.fit_npls(X3_64, Y64, 5), X3_64[:N_NEW]),
+        rel_any, API_ITER_RTOL, k1=0)
+    del X3, X3_64
+    # O2PLS: 100000×5000 against 500 columns of the model it fits (phase 4's
+    # X spreads 30 latent directions of one strength: its orthogonal
+    # directions would be ties)
+    Xo, Yo = o2pls_data(dev, seed, N, K, 500)
+    Xo64, Yo64 = Xo.double(), Yo.double()
+
+    def o2(Z, W):
+        f = tt.fit_o2pls(Z, W, 5, 2, 2)
+        return (tt.o2pls_predict_y(f, Z[:N_NEW]), tt.o2pls_predict_x(f, W[:N_NEW]),
+                torch.cat([f.r2x_orth, f.r2y_orth]))
+
+    run("fit_o2pls n=5 nx=2 ny=2, 500 Y columns (predict_y, predict_x, r2 orth)",
+        lambda: o2(Xo, Yo), lambda: o2(Xo64, Yo64),
+        lambda a, b: max(rel_any(x, y) for x, y in zip(a, b)), API_RTOL, k1=0,
+        note=lambda a, b: f"; r2 orth X {[round(float(v), 4) for v in a[2][:2]]}, "
+                          f"Y {[round(float(v), 4) for v in a[2][2:]]}")
+    del Xo, Yo, Xo64, Yo64
+    torch.cuda.empty_cache()
+    lap("npls_o2pls")
+
+    # missing data: 5 % of X's entries NaN
+    g = torch.Generator(dev).manual_seed(seed + 13)
+    Xn = X.masked_fill(torch.rand(X.shape, generator=g, device=dev) < 0.05, float("nan"))
+    Xn64 = Xn.double()
+    iters = {}
+
+    def nm(Z, W, tag):
+        f = tt.fit_nipals_missing(Z, W, 5, tol=NIPALS_TOL)
+        iters[tag] = list(missing.last_iterations)
+        return f, tt.predict_missing(f, Z[:N_NEW])
+
+    run("fit_nipals_missing 5 % NaN A=5 (predict_missing)",
+        lambda: nm(Xn, Y, "f32"), lambda: nm(Xn64, Y64, "f64"),
+        lambda a, b: max(rel_any(coefficients(a[0]), coefficients(b[0])), rel_any(a[1], b[1])),
+        API_ITER_RTOL, k1=0, note=lambda a, b: f"; iterations per component {iters}")
+    n, k = IMPUTE
+    gaps = torch.isnan(Xn[:n, :k])
+    run(f"impute_pls {n}×{k} A=5 n_outer=5 (the imputed entries)",
+        lambda: tt.impute_pls(Xn[:n, :k], Y[:n], 5, n_outer=5)[0][gaps],
+        lambda: tt.impute_pls(Xn64[:n, :k], Y64[:n], 5, n_outer=5)[0][gaps],
+        rel_any, API_ITER_RTOL, k1=6 * 5)
+    del Xn, Xn64
+    torch.cuda.empty_cache()
+    lap("missing")
+
+    # PLS-PM: ten latent variables, a chain with shortcuts from the first,
+    # each measured by a block of 500 manifests (100000×5000, made on the
+    # card: phase 4's X has no block structure); the last block formative
+    # (mode B), the path scheme
+    L = 10
+    path = np.zeros((L, L))
+    for i in range(1, L):
+        path[i, i - 1] = 1
+        path[i, 0] = 1
+    modes = ["A"] * (L - 1) + ["B"]
+    S = sem_data(dev, seed, N, K // L, L)
+    S64 = S.double()
+
+    def pm(Z, width):
+        blocks = [list(range(b * width, (b + 1) * width)) for b in range(L)]
+        return tt.fit_plspm(Z, blocks, path, modes=modes, scheme="path", tol=NIPALS_TOL)
+
+    run(f"fit_plspm {L}×{K // L} manifests, mode B, path scheme",
+        lambda: pm(S, K // L), lambda: pm(S64, K // L),
+        lambda a, b: max(rel_any(getattr(a, f), getattr(b, f))
+                         for f in ("paths", "loadings", "r2", "gof")),
+        API_ITER_RTOL, k1=0,
+        note=lambda a, b: f"; iterations f32 {int(a.n_iter)} f64 {int(b.n_iter)}, "
+                          f"GoF {float(a.gof):.5f}")
+    n_boot, n, k = BOOT
+    # the first k // L manifests of each block, on the first n rows
+    cols = torch.cat([torch.arange(b * (K // L), b * (K // L) + k // L, device=dev)
+                      for b in range(L)])
+
+    def boot(Z):  # both draw int32 resamples, as jax without x64 does
+        return tt.bootstrap_plspm(Z[:n][:, cols], [list(range(b * k // L, (b + 1) * k // L))
+                                                   for b in range(L)],
+                                  path, n_boot, key=seed, modes=modes, scheme="path",
+                                  tol=NIPALS_TOL, x64=False)
+
+    run(f"bootstrap_plspm {n_boot} replicates of {n}×{k}", lambda: boot(S), lambda: boot(S64),
+        lambda a, b: max(rel_any(getattr(a, f), getattr(b, f))
+                         for f in ("paths_se", "paths_lo", "paths_hi", "loadings_se")),
+        API_ITER_RTOL, k1=0)
+    del S, S64
+    torch.cuda.empty_cache()
+    lap("plspm")
+
+    # recursive PLS on the card: 10 chunks, λ = 1 against the statistics of
+    # all rows, and λ = 0.99 against float64
+    def rls(Z, W, lam, dtype):
+        r = tt.RecursivePLS(K, 10, lam=lam, dtype=dtype, device=dev)
+        for c in range(RLS_CHUNKS):
+            rows = slice(c * N // RLS_CHUNKS, (c + 1) * N // RLS_CHUNKS)
+            r.update(Z[rows], W[rows])
+        return coefficients(r.fit(API_A))
+
+    run(f"RecursivePLS {RLS_CHUNKS} chunks A={API_A} λ=1 (vs fit_from_stats on all rows)",
+        lambda: rls(X, Y, 1.0, torch.float32),
+        lambda: coefficients(tt.fit_from_stats(X.T @ X, X.T @ Y, API_A)),
+        rel_any, API_RTOL, k1=0)
+    run(f"RecursivePLS {RLS_CHUNKS} chunks A={API_A} λ=0.99",
+        lambda: rls(X, Y, 0.99, torch.float32), lambda: rls(X64, Y64, 0.99, torch.float64),
+        rel_any, API_RTOL, k1=0)
+    lap("recursive")
+
+    # checkpoints of every registered type fitted above, both formats,
+    # round-tripped bit-equal under build/
+    def same_state(a, b) -> bool:
+        for f in a.__dataclass_fields__:
+            x, y = getattr(a, f), getattr(b, f)
+            if isinstance(x, torch.Tensor):
+                if not (y.device == x.device and torch.equal(x, y)):
+                    return False
+            elif hasattr(x, "__dataclass_fields__"):
+                if not same_state(x, y):
+                    return False
+            elif x != y:
+                return False
+        return True
+
+    states = {"PLSFit": mb32.pls, "MBPLSFit": mb32, "OPLSFit": oda32,
+              "MonitorModel": tt.fit_monitor(cox32.pls, X, 5),
+              "NPLSFit": tt.fit_npls(X[:JACK_N].view(JACK_N, 50, 100), Y[:JACK_N], 3)}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        walls = {}
+        for name, st in states.items():
+            t0 = time.perf_counter()
+            tt.save_fit(st, f"{tmp}/{name}.npz")
+            a = tt.load_fit(f"{tmp}/{name}.npz", device=dev)
+            tt.save_fit_orbax(st, f"{tmp}/{name}_torch")
+            b = tt.load_fit_orbax(f"{tmp}/{name}_torch", device=dev)
+            walls[name] = round(time.perf_counter() - t0, 4)
+            check(same_state(st, a) and same_state(st, b), f"phase 11: {name} checkpoint")
+    print(f"  save_fit/load_fit and save_fit_orbax/load_fit_orbax bit-equal for "
+          f"{list(states)}; host s {walls}")
+    out["checkpoint_s"] = walls
+    health = fit_health(mb32.pls)
+    print(f"  fit_health(fit_mbpls's 100000×5000 fit): finite {health['finite']}, score "
+          f"orthogonality defect {health['score_orthogonality_defect']:.3e}, PᵀW diagonal "
+          f"deviation {health['ptw_diag_deviation']:.3e}")
+    check(health["finite"], "phase 11 fit_health: not finite")
+    r = torch.randn(K, device=dev)
+    saved = deflate.launches["deflate_f32"]  # timing launches stay out of the count
+    secs = profiling.measure(lambda: deflate.deflate_pass(X, r), iters=20)
+    deflate.launches["deflate_f32"] = saved
+    roof = profiling.roofline_report(secs, 4 * (N * K + N + 2 * K), 4 * N * K)
+    print(f"  roofline_report of one K1 pass at {N}×{K} (profiling.measure, CUDA events): {roof}")
+    out["roofline"] = {"ms": secs * 1e3, "frac_hbm_peak": roof.frac_hbm_peak}
+    lap("checkpoint_health")
+    del X, Y, X64, Y64
+    torch.cuda.empty_cache()
+
+    out["nir"] = phase_api_nir(deflate, dev)
+    lap("nir")
+    out["part_s"] = laps
+    print(f"phase 11 parts, s: {json.dumps(laps)}")
+    return out
+
+
+def phase_api_nir(deflate, dev) -> dict:
+    """Phase 11 on real data: the flows of examples/nir_calibration.py
+    (Kennard-Stone split, fit on the calibration rows) and
+    examples/spectroscopy_workflow.py (savgol + SNV, ipls_forward, the fit
+    on the chosen channels, piecewise_ds and apply_transfer to a simulated
+    second instrument) through the port in float32 on the card, against
+    the port's float64 run on the CPU at phase 3's tolerances; picks and
+    chosen intervals equal."""
+    import pls_tpu_torch as tt
+    from pls_tpu_torch import datasets
+
+    X_raw, Y_raw = datasets.load_nir()
+    slave_raw = 1.08 * X_raw + 0.05 + 0.01 * np.random.default_rng(0).normal(size=X_raw.shape)
+
+    def flows(device):
+        dt = tt.default_float_dtype(device)
+
+        def data(a):
+            return torch.as_tensor(a, dtype=dt, device=device)
+
+        X = tt.colwise_z_scores(data(X_raw))
+        Y = tt.colwise_z_scores(data(Y_raw))
+        cal, val = tt.ks_train_test_split(X, train_size=45)
+        f_cal = tt.fit(X[cal], Y[cal], 5)
+        rmsep = torch.sqrt(((tt.fitted_values(f_cal, X[val]) - Y[val]) ** 2).mean())
+        Xp = tt.snv(tt.savgol(data(X_raw), 11, 2, 1))
+        Xz = tt.colwise_z_scores(Xp)
+        sel = tt.ipls_forward(Xz, Y, n_intervals=10, A=5, k=10)
+        Xsel = Xz * data(sel.mask)[None, :]
+        ev = tt.explained_variance(tt.fit(Xsel, Y, max(sel.ncomp, 3)), Xsel, Y)
+        slave = tt.snv(tt.savgol(data(slave_raw), 11, 2, 1))
+        rec = tt.apply_transfer(tt.piecewise_ds(Xp[:40], slave[:40], window=3, A=2), slave[40:])
+        return cal, val, rmsep, sel, ev, rec, torch.linalg.vector_norm(rec - Xp[40:])
+
+    before = deflate.launches["deflate_f32"]
+    got, wall = event_wall(lambda: flows(dev))
+    d = deflate.launches["deflate_f32"] - before
+    ref = flows(torch.device("cpu"))
+    check(np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1]),
+          "phase 11 nir: Kennard-Stone picks differ")
+    check(got[3].selected == ref[3].selected and got[3].ncomp == ref[3].ncomp,
+          f"phase 11 nir: iPLS picked {got[3].selected}, the CPU run {ref[3].selected}")
+    e_rmse = max(rel_any(got[2], ref[2]), rel_any(got[3].rmsecv_path, ref[3].rmsecv_path),
+                 rel_any(got[6], ref[6]))
+    e_ev = float((got[4].cpu().double() - ref[4]).abs().max())
+    e_rec = rel_any(got[5], ref[5])
+    print(f"  nir flows (ks_train_test_split 45/15 + fit A=5; savgol+snv, ipls_forward picks "
+          f"{got[3].selected} at {got[3].ncomp} components, piecewise_ds + apply_transfer): "
+          f"{wall:.4f} s, K1 {d}; vs the port's f64 CPU run: picks and intervals equal, "
+          f"RMSEP/RMSECV/transfer residual rel {e_rmse:.3e} (bound {RMSE_RTOL}), EV abs "
+          f"{e_ev:.3e} (bound {EV_ATOL}), transferred spectra rel {e_rec:.3e} (bound {COEF_RTOL})")
+    check(e_rmse <= RMSE_RTOL and e_ev <= EV_ATOL and e_rec <= COEF_RTOL,
+          "phase 11 nir flows disagree with the CPU run")
+    return {"s": wall, "k1": d, "rmse_rel": e_rmse, "ev_abs": e_ev, "transfer_rel": e_rec}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1789,7 +2373,19 @@ def main() -> int:
     for k in ("deflate_f32", "deflate_bf16"):
         launches[k] += par_launches[k]
 
+    for counts in (deflate.launches, dv.launches):  # phase 11's run starts here
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    api_out = phase_api(deflate, dev, args.seed)
+    api_launches = {**deflate.launches, **dv.launches}  # ... and ends here
+    print(f"phase 11 launches: {api_launches}; {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(api_out, default=str)}")
+    check(api_launches["deflate_f32"] > 0, "phase 11 never launched K1")
+    launches["deflate_f32"] += api_launches["deflate_f32"]
+
     check("jax" not in sys.modules and "pls_tpu" not in sys.modules, "jax was imported")
+    print(nvidia_smi())  # again, beside the record: the run's tail carries the card
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"pls_tpu_torch/csrc/{source}",
          "replaces": replaces, "launches": sum(launches[c] for c in counters),

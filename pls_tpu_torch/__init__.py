@@ -24,7 +24,14 @@ plsglm.py), conformal prediction intervals (cv/conformal.py), the T²/SPE
 monitor (models/diagnostics.py), the PLSB export for native consumers
 (export.py) and hyper-parameter tuning (tune.py); the parallel package on
 torch.distributed (parallel/: row-, column- and fold-sharded fits and CV)
-and resumable CV sweeps (cv/resumable.py).
+and resumable CV sweeps (cv/resumable.py); and the rest of the public
+API: checkpointing in the JAX package's `.npz` layout
+(utils/checkpoint.py), jackknife and permutation inference
+(cv/inference.py), iPLS and UVE (select.py), Kennard-Stone/SPXY/duplex
+(sampling.py), DS/PDS/EPO calibration transfer (transfer.py), the model
+families multiblock, oplsda, plscox, recursive, missing, npls, o2pls and
+plspm (models/), the bundled datasets (datasets.py) and the debug and
+profiling utilities (utils/debug.py, utils/profiling.py).
 """
 
 from pls_tpu_torch.types import (
@@ -169,6 +176,74 @@ from pls_tpu_torch.tune import (
     tune_kpls,
     tune_spls_keepx,
 )
+from pls_tpu_torch.cv.inference import (
+    coefficient_significance,
+    jackknife_coefficients,
+    permutation_test,
+)
+from pls_tpu_torch.utils.checkpoint import (
+    load_fit,
+    load_fit_orbax,
+    register_checkpointable,
+    save_fit,
+    save_fit_orbax,
+)
+from pls_tpu_torch.select import (
+    IPLSResult,
+    IPLSSelection,
+    UVEResult,
+    interval_masks,
+    ipls,
+    ipls_backward,
+    ipls_forward,
+    uve_pls,
+)
+from pls_tpu_torch.sampling import duplex, kennard_stone, ks_train_test_split, spxy
+from pls_tpu_torch.transfer import (
+    EPOModel,
+    TransferModel,
+    apply_transfer,
+    direct_standardization,
+    epo,
+    epo_difference_matrix,
+    piecewise_ds,
+)
+from pls_tpu_torch.models.multiblock import (
+    MBPLSFit,
+    block_importance,
+    block_scores,
+    block_weights,
+    fit_mbpls,
+    predict_mbpls,
+    super_scores,
+)
+from pls_tpu_torch.models.oplsda import OPLSDAClassifier, fit_oplsda, s_plot
+from pls_tpu_torch.models.plscox import (
+    PLSCoxFit,
+    concordance_index,
+    fit_plscox,
+    predict_plscox,
+)
+from pls_tpu_torch.models.recursive import RecursivePLS
+from pls_tpu_torch.models.missing import (
+    fit_nipals_missing,
+    impute_pls,
+    nan_column_stats,
+    predict_missing,
+    scores_missing,
+)
+from pls_tpu_torch.models.npls import NPLSFit, fit_npls, predict_npls, scores_npls
+from pls_tpu_torch.models.o2pls import O2PLSFit, fit_o2pls
+from pls_tpu_torch.models.o2pls import predict_x as o2pls_predict_x
+from pls_tpu_torch.models.o2pls import predict_y as o2pls_predict_y
+from pls_tpu_torch.models.o2pls import transform as o2pls_transform
+from pls_tpu_torch.models.plspm import (
+    PLSPMBootstrap,
+    PLSPMFit,
+    bootstrap_plspm,
+    fit_plspm,
+    plspm_scores,
+)
 from pls_tpu_torch.utils.binio import (
     cv_kfold_npy,
     cv_repeated_kfold_npy,
@@ -219,4 +294,20 @@ __all__ = [
     "PLSSVD", "RobustPLSRegressor", "SPLSRegressor",
     "NestedCVResult", "grid_search_cv", "kfold_split", "nested_cv_components",
     "nested_grid_search_cv", "tune_kpls", "tune_spls_keepx",
+    "jackknife_coefficients", "coefficient_significance", "permutation_test",
+    "save_fit", "load_fit", "save_fit_orbax", "load_fit_orbax", "register_checkpointable",
+    "ipls", "ipls_forward", "ipls_backward", "interval_masks", "IPLSResult", "IPLSSelection",
+    "uve_pls", "UVEResult",
+    "kennard_stone", "spxy", "duplex", "ks_train_test_split",
+    "TransferModel", "direct_standardization", "piecewise_ds", "apply_transfer", "EPOModel",
+    "epo", "epo_difference_matrix",
+    "MBPLSFit", "block_importance", "block_scores", "block_weights", "fit_mbpls",
+    "predict_mbpls", "super_scores",
+    "OPLSDAClassifier", "fit_oplsda", "s_plot",
+    "PLSCoxFit", "fit_plscox", "predict_plscox", "concordance_index",
+    "RecursivePLS",
+    "fit_nipals_missing", "impute_pls", "nan_column_stats", "predict_missing", "scores_missing",
+    "NPLSFit", "fit_npls", "predict_npls", "scores_npls",
+    "O2PLSFit", "fit_o2pls", "o2pls_predict_y", "o2pls_predict_x", "o2pls_transform",
+    "PLSPMFit", "PLSPMBootstrap", "fit_plspm", "plspm_scores", "bootstrap_plspm",
 ]

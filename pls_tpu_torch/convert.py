@@ -5,9 +5,10 @@ The JAX package's `PLSFit` is a pytree of W, P, Q, R, T arrays, and
 Its streaming accumulators (`pls_tpu/models/streaming.py`) carry
 XᵀX/XᵀY statistics; `stats_from_numpy` turns their arrays into the
 port's.  The other model states (OPLSFit, KPLSFit, CDFit, PLSGLMFit,
-MonitorModel) go across by their dataclass fields: `state_from_numpy` and
-`state_to_numpy`.  Everything goes through numpy, so neither package
-imports the other.
+MonitorModel, MBPLSFit, NPLSFit, O2PLSFit, PLSCoxFit, PLSPMFit,
+TransferModel, EPOModel, ...) go across by their dataclass fields:
+`state_from_numpy` and `state_to_numpy`.  Everything goes through numpy,
+so neither package imports the other.
 """
 
 from __future__ import annotations
@@ -96,11 +97,12 @@ def state_from_numpy(
     dtype: torch.dtype | None = None,
 ):
     """A model state of the port's dataclass `cls` (OPLSFit, KPLSFit, CDFit,
-    PLSGLMFit, MonitorModel) from `src`, the JAX package's state of the
+    PLSGLMFit, MonitorModel and the other fit states) from `src`, the JAX package's state of the
     same name or a mapping of its fields, on `device` (None: the card).
     Array fields become tensors (in `dtype`, default the array's); a nested
     PLSFit (`pls`) goes through `fit_from_numpy`; str, int, float and None
-    fields (kernel, gamma, mode, family, alpha...) are copied."""
+    fields (kernel, gamma, mode, family, alpha...) are copied, a tuple or
+    list (block_sizes) as a tuple."""
     device = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(cls):
@@ -109,6 +111,8 @@ def state_from_numpy(
             kw[f.name] = fit_from_numpy(v, _get(v, "method"), device=device, dtype=dtype)
         elif v is None or isinstance(v, (str, int, float)):
             kw[f.name] = v
+        elif isinstance(v, (tuple, list)):  # static sizes (MBPLSFit.block_sizes)
+            kw[f.name] = tuple(v)
         else:
             kw[f.name] = torch.tensor(np.asarray(v), dtype=dtype, device=device)
     return cls(**kw)

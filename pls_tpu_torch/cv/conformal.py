@@ -35,7 +35,7 @@ import math
 import torch
 
 from pls_tpu_torch.config import resolve_device
-from pls_tpu_torch.models.kernel_pls import fit, fit_folds
+from pls_tpu_torch.models.kernel_pls import fit, fit_masks
 from pls_tpu_torch.models.predict import _promote, coefficients, fitted_values
 from pls_tpu_torch.types import KERNEL_TYPE1, METHOD
 from pls_tpu_torch.utils import jax_prng
@@ -59,12 +59,8 @@ def _order_stat(vals: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _fold_coefficients(X, Y, masks, A, method, comp, precision) -> torch.Tensor:
-    """(F, K, M) coefficients of the masked fits of `masks` (F, N): one
-    batch, or for F = 1 an un-batched fit."""
-    if masks.shape[0] == 1:
-        f = fit(X, Y, A, method, row_mask=masks[0], precision=precision)
-        return coefficients(f, comp)[None]
-    return coefficients(fit_folds(X, Y, masks, A, method, precision=precision), comp)
+    """(F, K, M) coefficients of the masked fits of `masks` (F, N)."""
+    return coefficients(fit_masks(X, Y, masks, A, method, precision=precision), comp)
 
 
 def _bounds(lows: torch.Tensor, highs: torch.Tensor, alpha: float):

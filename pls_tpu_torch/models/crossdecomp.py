@@ -16,9 +16,8 @@ w drops below `tol`, or after `max_iter`) is a Python loop here whose
 test is one host read per iteration, counted in `counts["host_reads"]`.
 Mode B's pseudo-inverses pass `jnp.linalg.pinv`'s default cutoff,
 rtol = 10·max(m, n)·eps, which is not `torch.linalg.pinv`'s (eps·max(m, n)).
-The JAX package registers `CDFit` with its orbax checkpointing, which
-the port does not have; `convert.state_to_numpy`/`state_from_numpy`
-carry one across.
+`CDFit` is registered with `utils/checkpoint.py` (`save_fit`/
+`load_fit`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,11 +26,14 @@ from dataclasses import dataclass
 
 import torch
 
+from pls_tpu_torch.utils.checkpoint import register_checkpointable
+
 # host reads of the power iteration's convergence test, over all fits
 # since the last reset
 counts = {"host_reads": 0}
 
 
+@register_checkpointable
 @dataclass(frozen=True)
 class CDFit:
     """A two-block fit: W (K, A) / C (M, A) weights, P / Q loadings, T / U

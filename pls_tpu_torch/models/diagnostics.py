@@ -13,10 +13,9 @@ X_new (preprocessed as the training X was):
 The per-sample statistics are torch on the tensors' device; the two
 control limits are scipy on the host, once per fit, as in the JAX package
 (`pls_tpu/models/diagnostics.py:147-167`).  `MonitorModel.check` is one
-batch of products and compares on the device.  The JAX package registers
-`MonitorModel` with its orbax checkpointing (`utils/checkpoint.py`), which
-the port does not have: carry one across with `convert.state_to_numpy`
-and `convert.state_from_numpy`.
+batch of products and compares on the device.  `MonitorModel` is
+registered with `utils/checkpoint.py` (`save_fit`/`load_fit`), as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ import torch
 
 from pls_tpu_torch.models.predict import _check_comp, _promote
 from pls_tpu_torch.types import PLSFit
+from pls_tpu_torch.utils.checkpoint import register_checkpointable
 
 
 def _train_scores(fit: PLSFit, X_train: torch.Tensor | None, comp: int) -> torch.Tensor:
@@ -133,6 +133,7 @@ def spe_limit(spe_train, alpha: float = 0.05) -> float:
     return float(g * chi2.ppf(1.0 - alpha, h))
 
 
+@register_checkpointable
 @dataclass(frozen=True)
 class MonitorModel:
     """The serving-side admission gate: score projector, loadings, score

@@ -41,6 +41,7 @@ import torch
 from pls_tpu_torch.ops.deflate import deflate_pass
 from pls_tpu_torch.ops.eigen import dominant_eigenvector
 from pls_tpu_torch.types import METHOD, PLSFit
+from pls_tpu_torch.utils import debug
 
 KERNEL_METHODS = (METHOD.KERNEL_TYPE1, METHOD.KERNEL_TYPE2)
 # the precision modes whose component loop runs in float64
@@ -145,6 +146,13 @@ def _fit_method(X, Y, A, method, power_iters, precision, reduce=None) -> PLSFit:
     return _fit_kernel(X, Y, A, type1, power_iters, precision, reduce)
 
 
+def _checked(f: PLSFit) -> PLSFit:
+    """f, checked finite inside `utils.debug.debug_nans()`."""
+    if debug.state["check_fits"]:
+        debug.assert_finite(f, "fit")
+    return f
+
+
 def fit(
     X: torch.Tensor,
     Y: torch.Tensor,
@@ -200,7 +208,7 @@ def fit(
         Y = Y * w
     if x_storage is not None:
         X = X.to(torch.bfloat16)
-    return _fit_method(X, Y, A, method, power_iters, precision)
+    return _checked(_fit_method(X, Y, A, method, power_iters, precision))
 
 
 def fit_folds(
@@ -231,7 +239,32 @@ def fit_folds(
     Xf = X if X.ndim == 3 else X[None] * m
     if x_storage is not None:
         Xf = Xf.to(torch.bfloat16)
-    return _fit_method(Xf, Y if Y.ndim == 3 else Y[None] * m, A, method, power_iters, precision)
+    return _checked(_fit_method(Xf, Y if Y.ndim == 3 else Y[None] * m, A, method, power_iters,
+                                precision))
+
+
+def fit_masks(
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    row_masks: torch.Tensor,
+    A: int,
+    method: METHOD = METHOD.KERNEL_TYPE1,
+    *,
+    power_iters: int | None = None,
+    precision: str | None = "highest",
+) -> PLSFit:
+    """`fit_folds` over the masks (F, N), but one mask (F = 1) is an
+    un-batched `fit` of X (N, K), whose passes launch K1 on the card for
+    float32 X; its state gains the fold axis of one.  The callers that
+    cut their folds into batches by `utils.batching.fold_batch_size`
+    (conformal, inference, select) fit each batch through this."""
+    if row_masks.shape[0] > 1:
+        return fit_folds(X, Y, row_masks, A, method, power_iters=power_iters,
+                         precision=precision)
+    f = fit(X, Y, A, method, row_mask=row_masks[0], power_iters=power_iters,
+            precision=precision)
+    return PLSFit(W=f.W[None], P=f.P[None], Q=f.Q[None], R=f.R[None], T=f.T[None],
+                  method=f.method)
 
 
 def _t_tt_p(X: torch.Tensor, Xa: torch.Tensor, r: torch.Tensor):

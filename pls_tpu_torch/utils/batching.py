@@ -19,16 +19,20 @@ def default_batch_size(n_items: int, N: int, K: int, itemsize: int) -> int:
     return max(1, min(n_items, FOLD_BATCH_BYTES // max(1, N * K * itemsize)))
 
 
-def fold_batch_size(n_folds: int, X: torch.Tensor, batch_size: int | None = None) -> int:
-    """Folds per batch of masked fits, for conformal's folds and the grid
-    search's: `batch_size`, or as many as keep a batch's (F, N, K) copies
-    of X near 128 MiB, at most 64.  A batch of one fold is an un-batched
-    fit (K1 on the card), a larger one a batched fit
-    (`kernel_pls.fit_folds`)."""
+def fold_batch_size(
+    n_folds: int, X: torch.Tensor, batch_size: int | None = None, cap: int = 64
+) -> int:
+    """Folds (or candidates, permutations) per batch of masked fits:
+    `batch_size` as the caller gives it, or as many as keep a batch's
+    (F, N, K) copies of X near 128 MiB, at most `cap` (the JAX package's
+    default batch size of the same call: 64 for the conformal folds and
+    the grid search, 32 for UVE's folds and the permutations, 8 for
+    iPLS's candidates).  A batch of one is an un-batched fit (K1 on the
+    card), a larger one a batched fit (`kernel_pls.fit_folds`)."""
     if batch_size is not None:
         return batch_size
     N, K = X.shape
-    return min(64, default_batch_size(n_folds, N, K, X.element_size()))
+    return min(cap, default_batch_size(n_folds, N, K, X.element_size()))
 
 
 def chunked_map(fn, xs: torch.Tensor, batch_size: int) -> torch.Tensor:

@@ -28,6 +28,17 @@ release's default), the threefry2x32 implementation:
     unsigned nbits arithmetic.  64-bit draws are the hash pair as
     (b0 << 32) | b1.
 
+  - `normal(key, shape, dtype)`: `_normal_real`, √2·erfinv(u) of u
+    uniform on [nextafter(−1, 0), 1) as `_uniform` makes it, for float32
+    (32-bit draws) and float64 (64-bit): the draw's top mantissa bits
+    under the exponent of 1.0, minus 1, times 2 (the span rounds to 2, so
+    the scaling is exact), plus nextafter(−1, 0).  The bits and u are
+    JAX's exactly;
+    erfinv is torch's, where XLA's is its own polynomial, so a value may
+    differ from JAX's in its last units in the place
+    (tests/test_torch_prng.py measures how many).  With a `device`, the
+    hash runs there in torch, in chunks, for draws too large for numpy.
+
 A key is a (2,) uint32 array, the raw data of a jax key
 (`jax.random.key_data`).
 """
@@ -163,3 +174,82 @@ def permutation(k, x) -> np.ndarray:
         order = np.argsort(random_bits32(sub, x.size), axis=-1, kind="stable")
         out = np.take_along_axis(out, order, axis=-1)
     return np.array(out)
+
+
+# ---------- floating draws ----------
+_M32 = 0xFFFFFFFF
+_CHUNK = 1 << 24  # draws per chunk of the device hash
+
+
+def _threefry_torch(k, x0: "torch.Tensor", x1: "torch.Tensor"):
+    """`threefry2x32` on int64 tensors holding uint32 values, under key k
+    (2,) uint32; the words stay below 2³² by masking."""
+    k0, k1 = int(k[0]), int(k[1])
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + (ks[(i + 2) % 3] + i + 1)) & _M32
+    return x0, x1
+
+
+def _unit_floats_torch(k, n: int, dtype, device) -> "torch.Tensor":
+    """(n,) floats in [1, 2) from the key's draws, as `_uniform` makes
+    them, hashed on `device`."""
+    import torch
+
+    f64 = dtype == torch.float64
+    out = torch.empty(n, dtype=dtype, device=device)
+    for lo in range(0, n, _CHUNK):
+        i = torch.arange(lo, min(n, lo + _CHUNK), dtype=torch.int64, device=device)
+        b0, b1 = _threefry_torch(k, i >> 32, i & _M32)
+        if f64:  # the top 52 of (b0 << 32) | b1
+            m = ((b0 << 20) | (b1 >> 12)) | 0x3FF0000000000000
+            out[lo : lo + len(i)] = m.view(torch.float64)
+        else:  # the top 23 of b0 ^ b1
+            m = ((b0 ^ b1) >> 9) | 0x3F800000
+            out[lo : lo + len(i)] = m.to(torch.int32).view(torch.float32)
+    return out
+
+
+def _unit_floats(k, n: int, dtype) -> np.ndarray:
+    """(n,) floats in [1, 2) from the key's draws, in numpy."""
+    dtype = np.dtype(dtype)
+    nbits, nmant = dtype.itemsize * 8, np.finfo(dtype).nmant
+    if nbits not in (32, 64):
+        raise TypeError(f"normal takes float32 or float64, got {dtype}")
+    udt = np.uint32 if nbits == 32 else np.uint64
+    bits = _random_bits(k, n, nbits)
+    one = np.array(1.0, dtype).view(udt)
+    return ((bits >> udt(nbits - nmant)) | one).view(dtype)
+
+
+def _shape(shape) -> tuple:
+    return (int(shape),) if np.ndim(shape) == 0 else tuple(int(d) for d in shape)
+
+
+def normal(k, shape, dtype=np.float32, device=None):
+    """`jax.random.normal(k, shape, dtype)` for float32 and float64 (one
+    key): numpy without a `device`; with one, a torch tensor made there
+    (a numpy dtype or a torch one)."""
+    import torch
+
+    shape = _shape(shape)
+    n = int(np.prod(shape))
+    if device is None:
+        npdt = np.dtype(dtype)
+        floats = _unit_floats(_as_key(k), n, npdt)
+        u = torch.from_numpy(floats) - 1.0
+    else:
+        tdt = dtype if isinstance(dtype, torch.dtype) else getattr(torch, np.dtype(dtype).name)
+        npdt = np.dtype(str(tdt).removeprefix("torch."))
+        u = _unit_floats_torch(_as_key(k), n, tdt, device) - 1.0
+    lo = np.nextafter(np.array(-1.0, npdt), np.array(0.0, npdt))
+    span = np.array(1.0, npdt) - lo
+    u = torch.clamp(u * float(span) + float(lo), min=float(lo))
+    out = (float(np.array(np.sqrt(2), npdt)) * torch.erfinv(u)).reshape(shape)
+    return out.numpy() if device is None else out

@@ -3,11 +3,9 @@
 Every name of `pls_tpu.__all__` whose object the port defines under the
 same module path (`pls_tpu.utils.binio.stats_from_npy` ->
 `pls_tpu_torch.utils.binio.stats_from_npy`) must resolve on
-`pls_tpu_torch` itself, as the same object.  The names the port does not
-implement yet are listed here as known gaps, by the JAX module they live
-in: ROADMAP queue 1 names each of them (item 11b, the rest of the public
-API, for all that are left).  A gap that the port fills must leave this
-list, so the list cannot go stale.
+`pls_tpu_torch` itself, as the same object.  The one known gap is
+`__version__`, the package metadata.  A gap that the port fills must
+leave the lists, so they cannot go stale.
 """
 
 import importlib
@@ -17,14 +15,9 @@ import pytest
 import pls_tpu
 import pls_tpu_torch
 
-# whole JAX modules the port has no counterpart of yet
-GAP_MODULES = {
-    "pls_tpu.cv.inference", "pls_tpu.sampling", "pls_tpu.select", "pls_tpu.transfer",
-    "pls_tpu.utils.checkpoint",
-    "pls_tpu.models.missing", "pls_tpu.models.multiblock", "pls_tpu.models.npls",
-    "pls_tpu.models.o2pls", "pls_tpu.models.oplsda", "pls_tpu.models.plscox",
-    "pls_tpu.models.plspm", "pls_tpu.models.recursive",
-}
+# whole JAX modules the port has no counterpart of (none: every module of
+# the public API is ported)
+GAP_MODULES: set[str] = set()
 # names missing from modules the port has
 GAP_NAMES = {
     "__version__",  # package metadata: the port's version is its repo's
