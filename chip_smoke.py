@@ -12,13 +12,20 @@ Phases, each of which fails the run:
      `deflate_pass_plain` on the same inputs and against f64 truth on the
      card, at every shape the main path gives them (toy 10×15, nir 60×401,
      100000×5000; phase 10's 10000×1000 and each of two ranks' 50000×5000;
-     phase 11's 100000×10000, 10000×5000, 1000×5000, 2000×500 and 45×401)
-     and at (130, 96), (300, 401), (4096, 5000), (65536,
-     2048), a ragged (4099, 5000), K = 8 (1000, 8), a bf16 K too wide for
-     the column-owning path (1024, 16384) and a K too wide for the staged
-     form (2048, 30000), printing each launch's path (cols / staged /
-     scalar / wide); relative error of t, p and tt ≤ 1e-5 against both,
-     and two launches bit-identical; then every
+     phase 11's 100000×10000, 10000×5000, 1000×5000, 2000×500 and 45×401;
+     phase 5's wide fit, 20000×30000) and at (130, 96), (300, 401), (4096,
+     5000), (65536, 2048), a ragged (4099, 5000), K = 8 (1000, 8), a bf16 K
+     too wide for the column-owning path (1024, 16384) and the K too wide
+     for the staged form, which must take the cluster path: (2048, 30000),
+     a ragged (1024, 30001), (512, 65536), (256, 131072), (128, 262144)
+     in bf16, (64, 140000) in f32 and every shape phase 5 times at wide K
+     (8192×65536, 8192×131072, 4096×262144), each also against the
+     two-pass form it replaces; and (64, 262152), past the cluster
+     kernel's 262144 columns, which must take the two-pass form; printing
+     each launch's plan (path:
+     cols / staged / scalar / cluster / wide, and the cluster size C);
+     relative error of t, p and tt ≤ 1e-5 against both, and two launches
+     bit-identical; then every
      variant of the kernel-variant sweep's default lists (K3, K4 at
      DEFAULT/HIGH/HIGHEST, K5 in both designs) against its plain version
      and f64 at 10×15, 130×96, 300×401 (scalar staging), 4096×5000 and
@@ -48,8 +55,18 @@ Phases, each of which fails the run:
      two-product form in f32 and in bf16-upcast; the library yardsticks
      (two f32 `torch.matmul` products; two bf16 cuBLAS products with r
      and t rounded to bf16, a looser function); the card's
-     device-to-device copy ceiling; and the wide-K form of K1 and K2
-     against the plain form at 20000×30000;
+     device-to-device copy ceiling; then at wide K, in f32 and bf16, at
+     20000×30000 (clusters of 2), 8192×65536 (4), 8192×131072 (8) and
+     4096×262144 (16), the cluster path against the two-pass form in
+     turns (cluster, two-pass, two-pass, cluster; back to back), which it
+     must beat at every shape, with the plain form, the library's two
+     products, each one's share of the bound and the clusters × C against
+     the card's SMs; then (its launch counts set to 0 just before and read just
+     after) `models.kernel_pls.fit` at 20000×30000×10, A = 20, on the
+     cluster path: f32 against float64 on the card (FIT_COEF_RTOL), bf16
+     storage against f32 (BF16_COEF_RTOL), 80 launches of each cluster
+     kernel and none of the others, the warm walls in turns beside 20 ×
+     the pass-time gain over the two-pass form;
   6. the sweep path: `pls_tpu_torch.tools.kernel_variants.sweep` at its
      default 65536×2048 and at 100000×5000, in f32 and in bf16, printing
      its tables (every variant beside the shipped kernel, the plain form
@@ -153,7 +170,8 @@ Phases, each of which fails the run:
      the constants IPLS_FWD_N through BOOT.
 
 The K1/K2 launch counts are set to 0 just before phase 3 and read just
-after phase 4; the K3-K5 counts just before and after phase 6; all of
+after phase 4; those of the cluster kernels just before and after phase
+5's fit; the K3-K5 counts just before and after phase 6; all of
 them just before and after phase 7, where they stay 0, and just before
 and after phases 8 and 9, whose K1 (and phase 9's K2) launches join phase
 3-4's in the record; phase 10 sets them to 0 after its one-device
@@ -161,8 +179,9 @@ references and reads them after its sharded calls, and its two ranks
 report their own counts, all of which join the record; phase 11 sets
 them to 0 before its calls and reads them after, and its K1 launches
 (not those `roofline_report` times) join the record.  The last
-two lines of stdout are the kernels' JSON record (K1-K5; ms is the
-back-to-back time per call, K1/K2 at 100000×5000, K3-K5 of the best
+two lines of stdout are the kernels' JSON record (K1-K5 and K1/K2's
+cluster kernels; ms is the back-to-back time per call, K1/K2 at
+100000×5000, their cluster kernels at 20000×30000, K3-K5 of the best
 variant at 65536×2048 by the sweep's chain slope, timed again back to
 back; K5's the faster of its two designs' best, timed in turns; each
 with bound_ms, the larger of its bytes over 3.35 TB/s and its flops over
@@ -195,7 +214,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
-DATA = ROOT / "pls_tpu" / "data"
+DATA = ROOT / "pls_tpu_torch" / "data"
 
 # float32 tolerances against the f64 goldens.  Coefficients and explained
 # variance: the JAX package's f32 contract on its accelerator
@@ -213,6 +232,8 @@ BF16_COEF_RTOL = 2e-2
 BF16_EV_ATOL = 2e-3
 
 BIG = (100_000, 5_000)
+WIDE_FIT = (20_000, 30_000, 10)  # N, K, M of the fit on the cluster path, A = 20
+WIDE = WIDE_FIT[:2]  # K past the staged form: the cluster path (two-pass form beside it)
 # every (N, K) the main path hands the kernel: toy, nir, the real-size fit,
 # and phase 10's: train_step's global fit at PAR_CV (world size 1) and each
 # of the two gloo ranks' half of BIG's rows
@@ -221,12 +242,24 @@ MAIN_PATH_SHAPES = [(10, 15), (60, 401), BIG, (10_000, 1_000), (BIG[0] // 2, BIG
                     # and the jackknife's full fit, impute_pls's NIPALS, nir's
                     # Kennard-Stone calibration rows
                     (BIG[0], 2 * BIG[1]), (10_000, 5_000), (1_000, 5_000), (2_000, 500),
-                    (45, 401)]
+                    (45, 401),
+                    # and phase 5's fit on the cluster path
+                    WIDE]
+# phase 5's wide-K timing: one shape for each cluster size, 2, 4, 8 and 16
+# (8192×131072 the TPU kernel's widest one-pass f32 K), in f32 and bf16
+WIDE_TIMED = [WIDE, (8_192, 65_536), (8_192, 131_072), (4_096, 262_144)]
 # K2's column-owning path: the sweep's shape, a ragged last tile, K = 8;
-# then a bf16 K past it (row-staged) and a K past the staged form (wide)
+# then a bf16 K past it (row-staged) and the K past the staged form: the
+# cluster path up to 262 144 columns (a ragged K on its 4-byte staging;
+# clusters of 16 past 131 072) and at phase 5's timed shapes, and a K
+# past 262 144, the two-pass form
 KERNEL_SHAPES = [(130, 96), (300, 401), (4096, 5000), (65_536, 2_048), (4099, 5000), (1000, 8),
-                 (1024, 16_384), (2048, 30_000)]
-WIDE = (20_000, 30_000)  # K past the staged form: the two-pass wide-K form
+                 (1024, 16_384), (2048, 30_000), (1024, 30_001), (512, 65_536), (256, 131_072),
+                 (128, 262_144), (64, 140_000), *WIDE_TIMED[1:], (64, 262_152)]
+SHAPE_DTYPES = {(128, 262_144): (torch.bfloat16,), (64, 140_000): (torch.float32,)}
+WIDE_PATHS = {**dict.fromkeys([(2048, 30_000), (1024, 30_001), (512, 65_536), (256, 131_072),
+                               (128, 262_144), (64, 140_000), *WIDE_TIMED], "cluster"),
+              (64, 262_152): "wide"}
 # the published H100 SXM peaks the bound is taken against (700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -346,6 +379,9 @@ RLS_CHUNKS = 10
 KERNELS = [
     ("deflate_f32", "deflate.cu", "pls_tpu/ops/deflate.py:83", ("deflate_f32",)),
     ("deflate_bf16", "deflate.cu", "pls_tpu/ops/deflate.py:102", ("deflate_bf16",)),
+    ("deflate_f32_cluster", "deflate.cu", "pls_tpu/ops/deflate.py:83", ("deflate_f32_cluster",)),
+    ("deflate_bf16_cluster", "deflate.cu", "pls_tpu/ops/deflate.py:102",
+     ("deflate_bf16_cluster",)),
     ("vpu_f32", "deflate_variants.cu", "tools/kernel_variants.py:72", ("vpu_f32",)),
     ("mxu_f32", "deflate_variants.cu", "tools/kernel_variants.py:153", ("mxu_f32",)),
     ("vpu_bf16", "deflate_variants.cu", "tools/kernel_variants.py:208",
@@ -360,6 +396,12 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise SmokeFailure(msg)
+
+
+def k12_counts(f32: int, bf16: int) -> dict:
+    """Launch counts of K1 and K2 on their row paths, none on the cluster path."""
+    return {"deflate_f32": f32, "deflate_bf16": bf16, "deflate_f32_cluster": 0,
+            "deflate_bf16_cluster": 0}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -463,20 +505,23 @@ def phase_device(deflate, variants) -> None:
 
 def phase_kernel(deflate, dev, seed: int) -> dict:
     """Returns {kernel name: max |kernel - plain| of t and p over the shapes}."""
-    abs_err = {"deflate_f32": 0.0, "deflate_bf16": 0.0}
+    abs_err = dict.fromkeys(deflate.launches, 0.0)
     g = torch.Generator(dev).manual_seed(seed)
     for N, K in MAIN_PATH_SHAPES + KERNEL_SHAPES:
         X32 = torch.randn((N, K), generator=g, device=dev)
         r = torch.randn(K, generator=g, device=dev)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in SHAPE_DTYPES.get((N, K), (torch.float32, torch.bfloat16)):
             X = X32.to(dtype)
-            name = deflate.kernel_name(dtype)
+            plan = deflate.plan_for(X, r)
+            name = deflate.kernel_name(dtype, plan.path)
+            if (N, K) in WIDE_PATHS:
+                check(plan.path == WIDE_PATHS[N, K], f"{name} {N}x{K}: planned {plan.path}")
             before = dict(deflate.path_launches)
             t, tt, p = deflate.deflate_pass_cuda(X, r)
             t2, tt2, p2 = deflate.deflate_pass_cuda(X, r)
             torch.cuda.synchronize()
             path = [k for k, v in deflate.path_launches.items() if v != before[k]]
-            check(path == [deflate.plan_for(X, r).path], f"{name} {N}x{K}: launched {path}")
+            check(path == [plan.path], f"{name} {N}x{K}: launched {path}")
             check(torch.equal(t, t2) and torch.equal(p, p2) and torch.equal(tt, tt2),
                   f"{name} {N}x{K}: two launches differ")
             tp, ttp, pp = deflate.deflate_pass_plain(X, r)
@@ -489,10 +534,17 @@ def phase_kernel(deflate, dev, seed: int) -> dict:
             e_tt = abs(float(tt) - float(ttd)) / float(ttd)
             q_p, q_t = rel_err(p, pp), rel_err(t, tp)
             q_tt = abs(float(tt) - float(ttp)) / float(ttp)
-            print(f"{name} {N}x{K} {path[0]} {deflate.plan_for(X, r)}: "
+            two = ""
+            if plan.path == "cluster":  # the two-pass form on the same inputs, for comparison
+                w = deflate._launch(X, r, deflate.staged_plan_for)
+                q_w = max(_rel3(w, (tp, ttp, pp)))
+                check(q_w <= KERNEL_RTOL, f"{name} {N}x{K}: two-pass vs plain rel err {q_w:.2e}")
+                two = f"; two-pass form vs plain {q_w:.3e}"
+                del w
+            print(f"{name} {N}x{K} {path[0]} {plan}: "
                   f"vs f64 rel p {e_p:.3e} tt {e_tt:.3e} t {e_t:.3e}; "
                   f"vs plain rel p {q_p:.3e} tt {q_tt:.3e} t {q_t:.3e}; "
-                  f"bit-identical relaunch")
+                  f"bit-identical relaunch{two}")
             check(tuple(t.shape) == (N,) and tuple(p.shape) == (K,) and tt.dim() == 0,
                   f"{name}: output shapes")
             check(max(e_p, e_tt, e_t) <= KERNEL_RTOL,
@@ -689,16 +741,103 @@ def phase_timing(deflate, dev, seed: int) -> dict:
           f"{2 * 4 * N * K / copy_ms / 1e6:.1f} GB/s (read + write)")
     del X, Xb, dst
     torch.cuda.empty_cache()
-    N, K = WIDE
-    X = torch.randn((N, K), generator=g, device=dev)
-    r = torch.randn(K, generator=g, device=dev)
-    for Xw in (X, X.to(torch.bfloat16)):
-        ms = median_ms(lambda: deflate.deflate_pass_cuda(Xw, r))
-        plain_ms = median_ms(lambda: deflate.deflate_pass_plain(Xw, r))
-        nbytes = N * K * Xw.element_size()
-        print(f"{deflate.kernel_name(Xw.dtype)} wide-K {N}x{K}: kernel {ms:.4f} ms = "
-              f"{nbytes / ms / 1e6:.1f} GB/s one-pass; plain {plain_ms:.4f} ms = "
-              f"{nbytes / plain_ms / 1e6:.1f} GB/s one-pass")
+    out.update(wide_timing(deflate, dev, g))
+    return out
+
+
+def wide_timing(deflate, dev, g) -> dict:
+    """The cluster path against the two-pass form it replaces, in turns
+    (cluster, two-pass, two-pass, cluster), back to back, at WIDE_TIMED in
+    f32 and bf16; with the plain form and the library's two products.
+    Returns the kernels-line entries of the cluster kernels at WIDE, and
+    {dtype: two-pass ms - cluster ms} there under "gain"."""
+    out, gain = {}, {}
+    for N, K in WIDE_TIMED:
+        X32 = torch.randn((N, K), generator=g, device=dev)
+        r = torch.randn(K, generator=g, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            X = X32 if dtype == torch.float32 else X32.to(dtype)
+            plan, two = deflate.plan_for(X, r), deflate.staged_plan_for(X, r)
+            check(plan.path == "cluster" and two.path == "wide",
+                  f"{N}x{K} {dtype}: planned {plan.path} / {two.path}")
+            forms = {"cluster": lambda: deflate.deflate_pass_cuda(X, r),
+                     "two-pass": lambda: deflate._launch(X, r, deflate.staged_plan_for)}
+            b2b = {k: [] for k in forms}
+            for key in ("cluster", "two-pass", "two-pass", "cluster"):
+                b2b[key] += times_ms(forms[key], reps=5, inner=10)
+            plain_ms = median_ms(lambda: deflate.deflate_pass_plain(X, r))
+            lib_ms = median_ms(lambda: library_pass(X, r))
+            b_ms, b_by = bound(N, K, X.element_size())
+            nbytes = N * K * X.element_size()
+            ms = {k: statistics.median(v) for k, v in b2b.items()}
+            name = deflate.kernel_name(dtype, "cluster")
+            print(f"{name} {N}x{K} {plan}: {plan.G} clusters x {plan.C} = {plan.G * plan.C} "
+                  f"CTAs of the card's {torch.cuda.get_device_properties(dev).multi_processor_count}"
+                  f" SMs; bound {b_ms:.4f} ms ({b_by})")
+            for key, v in list(b2b.items()) + [("plain", [plain_ms]), ("library", [lib_ms])]:
+                m = statistics.median(v)
+                print(f"  {key} {m:.4f} ms (spread {min(v):.4f}-{max(v):.4f}) = "
+                      f"{nbytes / m / 1e6:.1f} GB/s one-pass, {b_ms / m:.3f} of the bound")
+            print(f"  cluster vs two-pass: {ms['two-pass'] / ms['cluster']:.3f}x faster")
+            check(max(b2b["cluster"]) < min(b2b["two-pass"]),
+                  f"{name} {N}x{K}: the cluster path is not faster than the two-pass form")
+            if (N, K) == WIDE:
+                out[name] = (ms["cluster"], plain_ms, lib_ms, b_ms, b_by)
+                gain[dtype] = ms["two-pass"] - ms["cluster"]
+            del X
+        del X32
+        torch.cuda.empty_cache()
+    out["gain"] = gain
+    return out
+
+
+def phase_wide_fit(dev, seed: int, gain: dict) -> dict:
+    """`models.kernel_pls.fit` at WIDE_FIT, A = 20, on the cluster path, in
+    f32 and with x_storage="bf16", warm: f32 against float64 on the card,
+    bf16 against f32 (phase 4's bounds); the warm walls beside 20 × the
+    pass-time gain over the two-pass form (`gain`, from phase 5)."""
+    import pls_tpu_torch as ptt
+    from pls_tpu_torch.models import kernel_pls
+    from pls_tpu_torch.ops.stats import colwise_z_scores
+
+    N, K, M = WIDE_FIT
+    g = torch.Generator(dev).manual_seed(seed + 7)
+    lat = torch.randn((N, 30), generator=g, device=dev)
+    X = lat @ torch.randn((30, K), generator=g, device=dev)
+    X += 0.5 * torch.randn((N, K), generator=g, device=dev)
+    Y = lat @ torch.randn((30, M), generator=g, device=dev)
+    Y += 0.1 * torch.randn((N, M), generator=g, device=dev)
+    X, Y = colwise_z_scores(X), colwise_z_scores(Y)
+
+    def fit(XX, YY, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        B = ptt.coefficients(kernel_pls.fit(XX, YY, 20, **kw))
+        torch.cuda.synchronize()
+        return B, time.perf_counter() - t0
+
+    B32, _ = fit(X, Y)
+    B16, _ = fit(X, Y, x_storage="bf16")
+    B64, wall64 = fit(X.double(), Y.double())
+    e32, e16 = rel_err(B32, B64), rel_err(B16, B32)
+    check(tuple(B32.shape) == (K, M) and bool(torch.isfinite(B32).all())
+          and bool(torch.isfinite(B16).all()), "wide fit: shapes / non-finite")
+    check(e32 <= FIT_COEF_RTOL, f"wide fit f32 vs f64 coef rel {e32:.3e} > {FIT_COEF_RTOL}")
+    check(e16 <= BF16_COEF_RTOL, f"wide fit bf16 vs f32 coef rel {e16:.3e} > {BF16_COEF_RTOL}")
+    walls = {"f32": [], "bf16": []}
+    for storage in ("f32", "bf16", "bf16", "f32", "f32", "bf16"):  # in turns
+        walls[storage].append(fit(X, Y, **({"x_storage": "bf16"} if storage == "bf16"
+                                           else {}))[1])
+    out = {"coef_rel_f32_vs_f64": e32, "coef_rel_bf16_vs_f32": e16, "wall_f64_s": wall64}
+    for (k, v), dtype in zip(walls.items(), (torch.float32, torch.bfloat16)):
+        out[f"wall_{k}_s"] = statistics.median(v)
+        print(f"wide fit {N}x{K}x{M} A=20 {k}: warm wall median {statistics.median(v):.4f} s of "
+              f"{[round(w, 4) for w in v]}; 20 x (two-pass - cluster) pass time "
+              f"{20 * gain[dtype]:.3f} ms")
+    print(f"wide fit coef rel: f32 vs f64 {e32:.3e} (f64 wall {wall64:.3f} s), "
+          f"bf16 vs f32 {e16:.3e}")
+    del X, Y
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1328,7 +1467,7 @@ def phase_estimators(deflate, dev, seed: int) -> dict:
 
     # PLSRegressor: fit, predict, score, in float32 (K1), bf16 storage (K2), float64
     est, wall, d = launched(lambda: tt.PLSRegressor(EST_A).fit(X, Y))
-    check(d == {"deflate_f32": EST_A, "deflate_bf16": 0}, f"PLSRegressor.fit launches {d}")
+    check(d == k12_counts(EST_A, 0), f"PLSRegressor.fit launches {d}")
     (pred, score), wall_p = event_wall(lambda: (est.predict(X), est.score(X, Y)))
     est64, wall64 = event_wall(lambda: tt.PLSRegressor(EST_A).fit(X64, Y64))
     pred64 = est64.predict(X)
@@ -1349,7 +1488,7 @@ def phase_estimators(deflate, dev, seed: int) -> dict:
     out["PLSRegressor_bf16"] = {"fit_s": wall16, "coef_rel_f32": e16, "launches": d16}
     print(f"PLSRegressor({EST_A}, x_storage='bf16'): fit {wall16:.4f} s, launches {d16}; "
           f"coef_ vs f32 rel {e16:.3e} (bound {BF16_COEF_RTOL})")
-    check(d16 == {"deflate_f32": 0, "deflate_bf16": EST_A}, f"bf16 fit launches {d16}")
+    check(d16 == k12_counts(0, EST_A), f"bf16 fit launches {d16}")
     check(e16 <= BF16_COEF_RTOL, "PLSRegressor bf16 outside its budget")
 
     lap("PLSRegressor")
@@ -1636,7 +1775,7 @@ def phase_parallel(deflate, dev, seed: int, fit_walls: dict) -> tuple[dict, dict
                 f"; press rel err {rel_err(press, press_ref):.3e}")
             check(rel_err(press, press_ref) <= PAR_CV_RTOL, "train_step: press off")
             launches = dict(deflate.launches)  # ... and ends here (the two ranks' come below)
-            expect = {"deflate_f32": 2 * PAR_A + PAR_CV_A, "deflate_bf16": PAR_A}
+            expect = k12_counts(2 * PAR_A + PAR_CV_A, PAR_A)
             check(launches == expect, f"phase 10 world size 1: launches {launches}, not {expect}")
             # the cost of the collective path: the one-device and the sharded
             # fit in pairs, alternating which goes first
@@ -1672,7 +1811,7 @@ def phase_parallel(deflate, dev, seed: int, fit_walls: dict) -> tuple[dict, dict
           f"start-up):")
     for r, res in enumerate(ranks):
         print(f"  rank {r}: launches {res['launches']}, by path {res['path_launches']}")
-        check(res["launches"] == {"deflate_f32": 3 * PAR_A, "deflate_bf16": 0},
+        check(res["launches"] == k12_counts(3 * PAR_A, 0),
               f"rank {r}: launches {res['launches']}, expected {3 * PAR_A} K1")
         check(res["path_launches"]["staged"] == 3 * PAR_A, f"rank {r}: K1 left the staged path")
     for name, res in ranks[0]["calls"].items():
@@ -2315,9 +2454,24 @@ def main() -> int:
     launches = dict(deflate.launches)  # ... and ends here
     print(f"main path launches: {launches}, by path {deflate.path_launches}; cli walls "
           f"{cli_walls}; 20-component fit walls {fit_walls}")
-    check(all(v > 0 for v in launches.values()), "a kernel of the path never launched")
+    check(launches["deflate_f32"] > 0 and launches["deflate_bf16"] > 0,
+          "a kernel of the path never launched")
 
     times = phase_timing(deflate, dev, args.seed)
+    gain = times.pop("gain")
+
+    for counts in (deflate.launches, deflate.path_launches):  # the wide fit's run starts here
+        for k in counts:
+            counts[k] = 0
+    wide_out = phase_wide_fit(dev, args.seed, gain)
+    wide_launches = dict(deflate.launches)  # ... and ends here
+    print(f"wide fit launches: {wide_launches}, by path {deflate.path_launches}; "
+          f"{json.dumps(wide_out)}")
+    check(wide_launches["deflate_f32_cluster"] == 80 and wide_launches["deflate_bf16_cluster"]
+          == 80 and wide_launches["deflate_f32"] == wide_launches["deflate_bf16"] == 0,
+          "the wide fits left the cluster path")
+    for k in ("deflate_f32_cluster", "deflate_bf16_cluster"):
+        launches[k] += wide_launches[k]
 
     for counts in (dv.launches, dv.mxu_path_launches):  # the sweep path's run starts here
         for k in counts:
@@ -2385,6 +2539,8 @@ def main() -> int:
     launches["deflate_f32"] += api_launches["deflate_f32"]
 
     check("jax" not in sys.modules and "pls_tpu" not in sys.modules, "jax was imported")
+    check(all(sum(launches[c] for c in counters) > 0 for *_, counters in KERNELS),
+          "a kernel of the record never launched on its path")
     print(nvidia_smi())  # again, beside the record: the run's tail carries the card
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"pls_tpu_torch/csrc/{source}",

@@ -21,7 +21,13 @@
 //    column-owning design of csrc/deflate_common.cuh (`deflate_cols<16, 1>`:
 //    a producer warp's TMA ring, 16 consumer warps that own columns);
 //  - otherwise, and for every f32 X (K1), the row-staged design below,
-//    with 16-byte or scalar staging, or its two-pass wide-K form.
+//    with 16-byte or scalar staging;
+//  - K past one staged row and its p accumulator, up to 262 144 columns
+//    (which holds the TPU kernel's one-pass range, K ≤ 131 072 f32,
+//    ≤ 262 144 bf16): the cluster design (`deflate_cluster`, below the
+//    row-staged kernels), one pass over X shared by a thread-block cluster
+//    of 2-16 CTAs;
+//  - K past that: the row-staged design's two-pass wide-K form.
 //
 // Row-staged design:
 //  - A persistent grid of one block per SM.  Each block of 8 warps walks
@@ -42,9 +48,10 @@
 //    forces it).  One block with the largest tile beats two blocks with
 //    half the tile: what counts is the bytes in flight per SM.
 //  - Wider K (above about 19 000 in f32, 29 000 in bf16) does not fit even
-//    one row: then two passes over X run instead, t = X r one warp per
-//    row, and p in column strips, each block adding x_i t_i of a range of
-//    rows into a strip of p held in registers.
+//    one row: there the cluster design runs, and past 262 144 columns
+//    two passes over X: t = X r one warp per row, and p in
+//    column strips, each block adding x_i t_i of a range of rows into a
+//    strip of p held in registers.
 //  - 16-byte copies need K to be a multiple of the vector width (4 floats,
 //    8 bf16) and X 16-byte aligned; otherwise (nir has K = 401) the same
 //    kernel stages the rows with plain scalar loads and stores.  Offsets
@@ -253,6 +260,400 @@ cudaError_t rows_limits(int* budget, int* sms) {
                               *budget);
 }
 
+// ---------- the cluster design: one pass over X at wide K ----------
+//
+// Replaces `_deflate_pass_pallas` (pls_tpu/ops/deflate.py:129-192) at the
+// K where the TPU kernel's 16-row tile fits its 8 MiB VMEM budget
+// (`pallas_supported`: K ≤ 131 072 in f32, ≤ 262 144 in bf16) but one
+// staged row and the p accumulator do not fit one block's 227 KB (K past
+// about 19 000 f32 / 29 000 bf16); it also takes f32 K up to 262 144,
+// where the TPU kernel is two-pass.  Bytes bound it, as every path here:
+// the two-pass form it replaces reads X twice.  A thread-block cluster of
+// C CTAs (2, 4, 8 or 16) on neighbouring SMs shares every row instead:
+//  - CTA c of a cluster owns one contiguous column slice, ceil(K/V / C)
+//    chunks of V columns (the last slice ragged).  Each of its 512 threads
+//    owns at most kClusterCols columns of the slice: their r and p stay in
+//    registers for the whole pass, so the slices of r and p never touch
+//    device memory between tiles.
+//  - The CTA streams its slice of tiles of R rows (1, 2 or 4) into a ring
+//    of `stages` slots (2-8): one 1-D TMA bulk copy per row slice (V > 1),
+//    or, where K is not a multiple of the vector width or X is not 16-byte
+//    aligned (V == 1), 4-byte cp.async copies of the words that cover the
+//    slice, whose completion arrives on the same `full` mbarrier.  The slot
+//    of tile n - 1 is refilled with tile n - 1 + stages right after tile
+//    n's block barrier, when every thread of the CTA is past it, so the
+//    ring needs no `empty` barrier and stages - 1 tiles stay in flight.
+//  - tᵢ across the cluster: each CTA sums its threads' x_i[slice]·r[slice]
+//    in fixed order (warp shuffles, then warp order) and stores that
+//    partial into every peer's exchange buffer through distributed shared
+//    memory with st.async, which completes 4 bytes of the transaction the
+//    peer's exchange mbarrier expects (C·R partials a tile); every CTA
+//    waits on its own mbarrier, sums the C partials in rank order, so all
+//    hold the same bits of tᵢ, and rank 0 writes it.  A barrier.cluster a
+//    tile instead (all threads of all CTAs, its release waiting for every
+//    earlier store) was the slower design (PERF.md §6).  The exchange
+//    buffer and its mbarrier are double-buffered by tile parity: a peer
+//    writes a parity again only for tile n + 2, which needs tᵢ of tile
+//    n + 1, which needs this CTA's partial of n + 1, sent after every
+//    thread here has read tile n's.
+//  - p[slice] += x_i[slice]·tᵢ from the same staged slice, so X is read
+//    from device memory once; bf16 X is widened in registers.
+//  - A persistent grid of G clusters (at most what
+//    cudaOccupancyMaxActiveClusters allows at one CTA per SM) walks
+//    strided row tiles; each CTA writes its p slice into row g of the
+//    (G, K) partial buffer, which `finish_p_tt` sums in fixed order: no
+//    atomics, relaunches are bit-identical.  A cluster barrier after the
+//    mbarriers' set-up lets no peer store before they exist, and a last
+//    one keeps every CTA alive while a peer may still address its shared
+//    memory.
+// Offsets are 64-bit (8 192 × 262 144 is 2³¹ elements).
+
+constexpr int kClusterWarps = 16;
+constexpr int kClusterThreads = kClusterWarps * 32;
+constexpr int kClusterCols = 32;  // most columns of a slice a thread owns
+constexpr int kClusterMaxRows = 4;
+constexpr int kClusterMaxStages = 8;
+constexpr int kClusterMax = 16;
+
+__device__ __forceinline__ uint32_t cluster_special(int which) {
+  uint32_t v = 0;
+  if (which == 0) asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
+  if (which == 1) asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(v));
+  if (which == 2) asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(v));
+  if (which == 3) asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(v));
+  return v;
+}
+
+// Every thread of every CTA of the cluster; release/acquire at cluster scope.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The shared::cluster address in CTA `rank` of the variable at `local`.
+__device__ __forceinline__ uint32_t peer_addr(const void* local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(smem_u32(local)),
+               "r"(rank));
+  return remote;
+}
+
+// Stores v at `dst` in CTA `rank`'s shared memory, completing 4 bytes of
+// the transaction its mbarrier at `bar` expects (both given by their
+// local addresses).
+__device__ __forceinline__ void st_async_peer(const float* dst, uint64_t* bar, uint32_t rank,
+                                              float v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(
+          peer_addr(dst, rank)),
+      "r"(__float_as_uint(v)), "r"(peer_addr(bar, rank))
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: the peers' st.async data.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// Arrives on `bar` once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Bytes of one staged row slice: the slice's chunks, 16-byte aligned, and
+// with scalar staging one more 16 bytes for the words' shift.
+__host__ __device__ constexpr int64_t cluster_row_bytes(int64_t K, int C, int V, int itemsize) {
+  return align16(((K / V + C - 1) / C) * V * itemsize) + (V == 1 ? 16 : 0);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+deflate_cluster(const T* __restrict__ X, const float* __restrict__ r, float* __restrict__ t,
+                float* __restrict__ partial, int64_t N, int64_t K, int R, int stages) {
+  using Raw = typename Chunk<T, V>::Raw;
+  constexpr int MAXC = kClusterCols / V;  // most chunks a thread owns
+  constexpr int NT = kClusterThreads;
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t full[kClusterMaxStages];
+  __shared__ __align__(8) uint64_t xbar[2];  // the exchange's arrivals, by tile parity
+  __shared__ float red[kClusterMaxRows][kClusterWarps];
+  __shared__ float xch[2][kClusterMax][kClusterMaxRows];  // tile parity, rank, row
+  const uint32_t rank = cluster_special(0);
+  const int C = static_cast<int>(cluster_special(1));
+  const int64_t g = cluster_special(2);
+  const int64_t G = cluster_special(3);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int64_t KV = K / V;                 // chunks of a row
+  const int64_t sc_full = (KV + C - 1) / C;  // chunks of a slice
+  const int64_t q0 = rank * sc_full;
+  const int sc = static_cast<int>(KV - q0 < sc_full ? (KV - q0 > 0 ? KV - q0 : 0) : sc_full);
+  const int64_t c0 = q0 * V;  // the slice's first column
+  const int cpt = (sc + NT - 1) / NT;
+  const int64_t row_bytes = cluster_row_bytes(K, C, V, sizeof(T));
+  const int64_t slot_bytes = row_bytes * R;
+  const int64_t n_tiles = (N + R - 1) / R;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], V > 1 ? 1 : NT);
+    mbar_init(&xbar[0], 1);
+    mbar_init(&xbar[1], 1);
+    mbar_fence_init();
+  }
+  cluster_sync();  // the barriers are set, and every peer has started
+
+  // starts the copy of tile `tile`'s slice into slot `slot`
+  auto fill = [&](int64_t tile, int slot) {
+    const int64_t row0 = tile * R;
+    const int rows = N - row0 < R ? static_cast<int>(N - row0) : R;
+    unsigned char* dst = ring + slot * slot_bytes;
+    if constexpr (V > 1) {
+      if (tid == 0) {
+        const uint32_t bytes = static_cast<uint32_t>(sc) * 16u;
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_expect_tx(&full[slot], bytes * rows);
+        for (int i = 0; i < rows && sc > 0; ++i) {
+          bulk_copy_g2s(dst + i * row_bytes, X + (row0 + i) * K + c0, bytes, &full[slot]);
+        }
+      }
+    } else {
+      const int64_t len = static_cast<int64_t>(sc) * sizeof(T);
+      for (int i = 0; i < rows; ++i) {
+        const uintptr_t a = reinterpret_cast<uintptr_t>(X + (row0 + i) * K + c0);
+        const uintptr_t w0 = a & ~uintptr_t(3);
+        const int64_t words = static_cast<int64_t>((a + len + 3 - w0) / 4);
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(w0);
+        uint32_t* d = reinterpret_cast<uint32_t*>(dst + i * row_bytes);
+        for (int64_t w = tid; w < words; w += NT) cp_async4(d + w, src + w);
+      }
+      cp_async_arrive(&full[slot]);
+    }
+  };
+
+  // this thread's chunks q = tid + j·NT of the slice: r in registers, p accumulated there
+  float rv[MAXC][V], pa[MAXC][V];
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) {
+    const int q = tid + j * NT;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      rv[j][e] = (j < cpt && q < sc) ? __ldg(r + c0 + static_cast<int64_t>(q) * V + e) : 0.f;
+      pa[j][e] = 0.f;
+    }
+  }
+  // the element shift of a staged row (scalar staging: words from a 4-byte boundary)
+  auto shift_of = [&](int64_t row) -> int {
+    if constexpr (V > 1) {
+      return 0;
+    } else {
+      return static_cast<int>((reinterpret_cast<uintptr_t>(X + row * K + c0) & 3) / sizeof(T));
+    }
+  };
+  auto chunk = [&](const unsigned char* rowp, int shift, int q, float (&x)[V]) {
+    if constexpr (V > 1) {
+      widen<T, V>(*reinterpret_cast<const Raw*>(rowp + static_cast<int64_t>(q) * 16), x);
+    } else {
+      widen<T, 1>(reinterpret_cast<const T*>(rowp)[shift + q], x);
+    }
+  };
+
+  const int64_t mine = g < n_tiles ? (n_tiles - g + G - 1) / G : 0;  // this cluster's tiles
+  for (int s = 0; s < stages && s < mine; ++s) fill(g + s * G, s);
+
+  int n = 0;
+  for (int64_t tile = g; tile < n_tiles; tile += G, ++n) {
+    const int slot = n % stages;
+    const int64_t row0 = tile * R;
+    const int rows = N - row0 < R ? static_cast<int>(N - row0) : R;
+    const unsigned char* st = ring + slot * slot_bytes;
+    // this tile's exchange: R partials from each of the C ranks
+    if (tid == 0) mbar_expect_tx(&xbar[n & 1], static_cast<uint32_t>(C * R * 4));
+    mbar_wait(&full[slot], (n / stages) & 1);
+
+    // x_i[slice]·r[slice] of the staged rows: V chains a thread, then the warp
+    float d[kClusterMaxRows];
+#pragma unroll
+    for (int i = 0; i < kClusterMaxRows; ++i) {
+      float acc[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = 0.f;
+      if (i < rows) {
+        const int shift = shift_of(row0 + i);
+#pragma unroll
+        for (int j = 0; j < MAXC; ++j) {
+          const int q = tid + j * NT;
+          if (j < cpt && q < sc) {
+            float x[V];
+            chunk(st + i * row_bytes, shift, q, x);
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[e] = fmaf(x[e], rv[j][e], acc[e]);
+          }
+        }
+      }
+      d[i] = 0.f;
+#pragma unroll
+      for (int e = 0; e < V; ++e) d[i] += acc[e];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) d[i] += __shfl_xor_sync(0xffffffffu, d[i], off);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < kClusterMaxRows; ++i) red[i][warp] = d[i];
+    }
+    __syncthreads();
+    // every thread is past tile n - 1: its slot takes tile n - 1 + stages
+    if (n > 0 && tile - G + static_cast<int64_t>(stages) * G < n_tiles) {
+      fill(tile - G + static_cast<int64_t>(stages) * G, (n - 1) % stages);
+    }
+    // the CTA's partial of row i, in warp order, into every peer's exchange
+    // buffer: thread i·C + c stores it to rank c, completing on its xbar.
+    // Every lane of a warp has read red before any lane stores: a
+    // self-addressed store can complete this CTA's xbar, and a warp past
+    // that wait may write red for the next tile.
+    float(*xp)[kClusterMaxRows] = xch[n & 1];
+    float s = 0.f;
+    if (tid < R * C) {
+      for (int w = 0; w < kClusterWarps; ++w) s += red[tid / C][w];
+    }
+    __syncwarp();
+    if (tid < R * C) {
+      st_async_peer(&xp[rank][tid / C], &xbar[n & 1], static_cast<uint32_t>(tid % C), s);
+    }
+    mbar_wait_cluster(&xbar[n & 1], (n >> 1) & 1);
+
+    // tᵢ: the C partials in rank order; then p[slice] += x_i[slice]·tᵢ
+#pragma unroll
+    for (int i = 0; i < kClusterMaxRows; ++i) {
+      if (i < rows) {
+        float ti = 0.f;
+        for (int c = 0; c < C; ++c) ti += xp[c][i];
+        if (rank == 0 && tid == i) t[row0 + i] = ti;
+        const int shift = shift_of(row0 + i);
+#pragma unroll
+        for (int j = 0; j < MAXC; ++j) {
+          const int q = tid + j * NT;
+          if (j < cpt && q < sc) {
+            float x[V];
+            chunk(st + i * row_bytes, shift, q, x);
+#pragma unroll
+            for (int e = 0; e < V; ++e) pa[j][e] = fmaf(x[e], ti, pa[j][e]);
+          }
+        }
+      }
+    }
+  }
+
+  float* out = partial + g * K + c0;
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) {
+    const int q = tid + j * NT;
+    if (j < cpt && q < sc) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) out[static_cast<int64_t>(q) * V + e] = pa[j][e];
+    }
+  }
+  cluster_sync();  // no CTA leaves while a peer may still address its shared memory
+}
+
+constexpr int kClusterSizes[] = {2, 4, 8, 16};
+
+// Raises deflate_cluster<T, V>'s dynamic shared memory limit to the
+// device's maximum and allows clusters of 16; *budget: the dynamic bytes
+// a CTA may take; clusters[i]: the most clusters of kClusterSizes[i] CTAs
+// that can be resident at once with that much shared memory (0 where that
+// size cannot launch).
+template <typename T, int V>
+cudaError_t cluster_limits(int* budget, int* clusters) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, deflate_cluster<T, V>);
+  if (err != cudaSuccess) return err;
+  *budget = optin - static_cast<int>(attr.sharedSizeBytes);
+  err = cudaFuncSetAttribute(deflate_cluster<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *budget);
+  if (err != cudaSuccess) return err;
+  const bool non_portable = cudaFuncSetAttribute(
+      deflate_cluster<T, V>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) == cudaSuccess;
+  cudaGetLastError();
+  for (int i = 0; i < 4; ++i) {
+    const int C = kClusterSizes[i];
+    clusters[i] = 0;
+    if (C > 8 && !non_portable) continue;
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = C;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(C);
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(*budget);
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, deflate_cluster<T, V>, &cfg) == cudaSuccess) {
+      clusters[i] = n;
+    }
+    cudaGetLastError();  // a size that cannot launch leaves 0, not a sticky error
+  }
+  return cudaSuccess;
+}
+
+// Launches deflate_cluster as planned (G clusters of C CTAs, tiles of R
+// rows, a ring of `stages` slots), then the fixed-order sum of p and
+// tt = r·p, on `stream`.  Refuses a plan the kernel cannot run.
+template <typename T, int V>
+cudaError_t cluster_launch(const void* X, const float* r, float* t, float* p, float* tt,
+                           float* partial, int64_t N, int64_t K, int64_t G, int C, int R,
+                           int stages, cudaStream_t stream) {
+  const int64_t sc = (K / V + C - 1) / C;
+  const bool c_ok = C == 2 || C == 4 || C == 8 || C == 16;
+  if (!c_ok || R < 1 || R > kClusterMaxRows || stages < 2 || stages > kClusterMaxStages ||
+      G < 1 || N < 1 || K < V * C || K % V != 0 || (sc + kClusterThreads - 1) /
+      kClusterThreads > kClusterCols / V ||
+      (V > 1 && reinterpret_cast<uintptr_t>(X) % 16 != 0)) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem =
+      static_cast<size_t>(stages) * R * cluster_row_bytes(K, C, V, static_cast<int>(sizeof(T)));
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = static_cast<unsigned>(C);
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(static_cast<unsigned>(G * C));
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, deflate_cluster<T, V>, static_cast<const T*>(X), r,
+                                       t, partial, N, K, R, stages);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return finish_p_tt(r, p, tt, partial, G, K, stream);
+}
+
 // R > 0: the row-staged kernel over tiles of R rows; R == 0: the two-pass
 // wide-K form, with G row ranges.
 template <typename T, int V>
@@ -335,6 +736,41 @@ int pls_deflate_cols_pass(const void* X, const float* r, float* t, float* p, flo
                           void* stream) {
   return static_cast<int>(cols_launch<kColsWarps, kColsBlocks>(
       X, r, t, p, tt, partial, N, K, G, S, stages, static_cast<cudaStream_t>(stream)));
+}
+
+// Limits of the current device for the cluster pass of (dtype, vec):
+// *budget, the dynamic shared memory a cluster CTA may take; clusters[4],
+// the most resident clusters of 2, 4, 8 and 16 CTAs (0: cannot launch).
+// Raises the kernel's shared memory limit and allows clusters of 16.
+int pls_deflate_cluster_limits(int dtype, int vec, int* budget, int* clusters) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && vec == 4) err = cluster_limits<float, 4>(budget, clusters);
+  if (dtype == 0 && vec == 1) err = cluster_limits<float, 1>(budget, clusters);
+  if (dtype == 1 && vec == 8) err = cluster_limits<__nv_bfloat16, 8>(budget, clusters);
+  if (dtype == 1 && vec == 1) err = cluster_limits<__nv_bfloat16, 1>(budget, clusters);
+  return static_cast<int>(err);
+}
+
+// Launches the cluster pass (G clusters of C CTAs, tiles of R rows, a ring
+// of `stages` slots) on `stream`; returns cudaGetLastError() (0 = launched).
+int pls_deflate_cluster_pass(int dtype, int vec, const void* X, const float* r, float* t,
+                             float* p, float* tt, float* partial, int64_t N, int64_t K,
+                             int64_t G, int C, int R, int stages, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && vec == 4) {
+    err = cluster_launch<float, 4>(X, r, t, p, tt, partial, N, K, G, C, R, stages, s);
+  }
+  if (dtype == 0 && vec == 1) {
+    err = cluster_launch<float, 1>(X, r, t, p, tt, partial, N, K, G, C, R, stages, s);
+  }
+  if (dtype == 1 && vec == 8) {
+    err = cluster_launch<__nv_bfloat16, 8>(X, r, t, p, tt, partial, N, K, G, C, R, stages, s);
+  }
+  if (dtype == 1 && vec == 1) {
+    err = cluster_launch<__nv_bfloat16, 1>(X, r, t, p, tt, partial, N, K, G, C, R, stages, s);
+  }
+  return static_cast<int>(err);
 }
 
 const char* pls_cuda_error_string(int err) {

@@ -9,9 +9,10 @@ that t stays float32 between the two contractions.
 What bounds it on the H100: bytes.  One pass moves N·K·itemsize bytes of X
 for about 4·N·K flops, far below the card's ridge point.  The two-product
 form (`deflate_pass_plain`) reads X twice; the CUDA kernels read it once.
-`choose_plan` picks one of four paths per shape (plain Python, so that the
+`choose_plan` picks one of five paths per shape (plain Python, so that the
 CPU tests reach it); `staged_plan` is the row-staged design's choice
-alone, which comparisons launch beside the cols path through `_launch`:
+alone, which comparisons launch beside the cols and cluster paths through
+`_launch`:
 
 - "cols" (K2 on bf16 X with K % 8 == 0, X 16-byte aligned, K ≤ 10 240):
   the column-owning design of `csrc/deflate_common.cuh`; one block per
@@ -24,8 +25,19 @@ alone, which comparisons launch beside the cols path through `_launch`:
   staged row, then xᵢtᵢ into a p accumulator in shared memory;
 - "scalar": the same with plain loads, where K is not a multiple of the
   vector width or X or r is not 16-byte aligned;
-- "wide": K too wide for one staged row and the accumulator in shared
-  memory, a two-pass form (t by rows, then p by column strips).
+- "cluster" (K1/K2 at wide K: past one staged row and the accumulator in
+  shared memory, up to K = 262 144 in f32 and bf16, which holds the TPU
+  kernel's whole one-pass range, K ≤ 131 072 f32 / 262 144 bf16):
+  `csrc/deflate.cu`'s cluster design, one pass over X.  A thread-block
+  cluster of C CTAs (2, 4, 8 or 16, the smallest whose threads can hold a
+  column slice's r and p in registers) shares every row, each CTA one
+  column slice streamed by TMA bulk copies (X 16-byte aligned, K a
+  multiple of the vector width) or 4-byte cp.async copies (otherwise); tᵢ
+  is summed across the cluster through distributed shared memory;
+- "wide": where the cluster kernel cannot take the shape (K past
+  16 CTAs × 512 threads × 32 columns = 262 144, or a cluster size the
+  device cannot launch), a two-pass form (t by rows, then p by column
+  strips).
 
 The cross-block sum of p is two-stage on every path (each block owns a row
 of a (G, K) partial buffer; a second kernel sums the rows in fixed order)
@@ -47,15 +59,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from collections.abc import Callable
+from collections.abc import Callable, Iterator
 from dataclasses import dataclass
 
 import torch
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _CODES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}  # (dtype code, vector width)
-PATHS = ("cols", "staged", "scalar", "wide")
-launches = {"deflate_f32": 0, "deflate_bf16": 0}
+PATHS = ("cols", "staged", "scalar", "cluster", "wide")
+launches = {"deflate_f32": 0, "deflate_bf16": 0, "deflate_f32_cluster": 0,
+            "deflate_bf16_cluster": 0}
 path_launches = dict.fromkeys(PATHS, 0)
 
 # the column-owning design (csrc/deflate_common.cuh): rows of a tile each
@@ -66,6 +79,14 @@ COLS_ROWS, COLS_CHUNKS, COLS_GROUPS, COLS_MAX_STAGES = 2, 5, (1, 2, 4, 8), 8
 COLS_WARPS, COLS_BLOCKS, COLS_STAGES = 16, 1, 4
 STAGED_ROWS = (8, 4, 2, 1)  # rows per staged tile, largest that fits first
 STAGED_THREADS = 256  # threads of a row-staged block: a wide-K strip's chunks
+# the cluster design (csrc/deflate.cu): CTAs a cluster, threads a CTA, most
+# columns of a slice a thread holds, rows per tile (largest that fits
+# first), ring slots
+CLUSTER_SIZES = (2, 4, 8, 16)
+CLUSTER_THREADS = 512
+CLUSTER_COLS = 32
+CLUSTER_ROWS = (4, 2, 1)
+CLUSTER_MIN_STAGES, CLUSTER_MAX_STAGES = 3, 8
 
 
 @dataclass(frozen=True)
@@ -73,19 +94,24 @@ class Limits:
     """One device's limits for one kernel configuration: `staged`, the
     dynamic shared memory the row-staged kernel may take; `cols`, the bytes
     the column-owning kernel's ring may take (0 where it does not apply);
-    `sms`, the SM count."""
+    `sms`, the SM count; `cluster`, the dynamic shared memory a CTA of the
+    cluster kernel may take; `clusters`, the most resident clusters of each
+    of CLUSTER_SIZES CTAs (0 where that size cannot launch)."""
 
     staged: int
     cols: int
     sms: int
+    cluster: int
+    clusters: tuple[int, ...]
 
 
 @dataclass(frozen=True)
 class Plan:
-    """One pass's launch: `path` (one of PATHS), `vec` (the row-staged
-    kernels' vector width, 1 for scalar loads), `G` (blocks, the rows of
-    the partial buffer), `R` (rows per tile; 0 on the wide path), and on
-    the cols path `S` (row groups) and `stages` (ring slots)."""
+    """One pass's launch: `path` (one of PATHS), `vec` (the vector width,
+    1 for scalar loads), `G` (blocks, or clusters on the cluster path: the
+    rows of the partial buffer), `R` (rows per tile; 0 on the wide path),
+    `S` (the cols path's row groups), `stages` (ring slots, cols and
+    cluster paths) and `C` (CTAs a cluster)."""
 
     path: str
     vec: int
@@ -93,6 +119,7 @@ class Plan:
     R: int
     S: int = 0
     stages: int = 0
+    C: int = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -146,18 +173,67 @@ def staged_smem(K: int, R: int, itemsize: int) -> int:
     return _cdiv(4 * K, 16) * 16 + 2 * R * K * itemsize
 
 
+def cluster_row_bytes(K: int, C: int, vec: int, itemsize: int) -> int:
+    """Shared memory of one staged row slice in the cluster kernel: the
+    slice's chunks, 16-byte aligned, and with scalar staging 16 bytes more
+    for the copied words' shift (`cluster_row_bytes` in csrc/deflate.cu)."""
+    return _cdiv(_cdiv(K // vec, C) * vec * itemsize, 16) * 16 + (16 if vec == 1 else 0)
+
+
+def cluster_plans(dtype: torch.dtype, N: int, K: int, x_aligned: bool,
+                  limits: Callable[[int], Limits],
+                  min_stages: int = CLUSTER_MIN_STAGES) -> Iterator[Plan]:
+    """Every plan the cluster kernel can run for X (N, K), in the order the
+    planner prefers them: 16-byte
+    staging where K is a multiple of the vector width and X 16-byte aligned,
+    else 4-byte copies (vec 1); r is read once, by scalars, so its alignment
+    does not matter.  Each C of CLUSTER_SIZES the device launches whose
+    slice every thread can hold (at most CLUSTER_COLS columns each),
+    smallest first; within it each R of CLUSTER_ROWS, largest first, whose
+    ring takes at least `min_stages` slots, with as many slots
+    (≤ CLUSTER_MAX_STAGES) as fit; G, the clusters, at most the resident
+    ones, and no more than the tiles.  No plan past 16 CTAs' columns
+    (K > 262 144 = 16 · CLUSTER_THREADS · CLUSTER_COLS)."""
+    itemsize = 4 if dtype == torch.float32 else 2
+    full = _CODES[dtype][1]
+    vec = full if K % full == 0 and x_aligned else 1
+    lim = limits(vec)
+    for C, resident in zip(CLUSTER_SIZES, lim.clusters):
+        if (resident < 1 or K // vec < C
+                or _cdiv(_cdiv(K // vec, C), CLUSTER_THREADS) * vec > CLUSTER_COLS):
+            continue
+        row = cluster_row_bytes(K, C, vec, itemsize)
+        for R in CLUSTER_ROWS:
+            stages = min(CLUSTER_MAX_STAGES, lim.cluster // (R * row))
+            if stages >= min_stages:
+                yield Plan("cluster", vec, min(resident, _cdiv(N, R)), R, 0, stages, C)
+
+
+def cluster_plan(dtype: torch.dtype, N: int, K: int, x_aligned: bool,
+                 limits: Callable[[int], Limits]) -> Plan | None:
+    """The cluster design's plan, the first of `cluster_plans`: the
+    smallest C that holds the slice with CLUSTER_MIN_STAGES slots of one
+    row, then the largest R with as many; or None where the cluster kernel
+    cannot take the shape."""
+    return next(cluster_plans(dtype, N, K, x_aligned, limits), None)
+
+
 def choose_plan(dtype: torch.dtype, N: int, K: int, x_aligned: bool, r_aligned: bool,
                 limits: Callable[[int], Limits]) -> Plan:
     """The pass's plan for X (N, K) of `dtype`: "cols" where the
     column-owning design takes the shape (bf16, K % 8 == 0, X 16-byte
-    aligned, K not too wide), else `staged_plan`'s.  `limits(vec)` gives
-    the device's limits for that vector width."""
+    aligned, K not too wide); else `staged_plan`'s, unless that is "wide"
+    and `cluster_plan` takes the shape.  `limits(vec)` gives the device's
+    limits for that vector width."""
     if dtype == torch.bfloat16 and x_aligned:
         lim = limits(8)
         plan = cols_plan(N, K, COLS_WARPS, COLS_BLOCKS, lim.cols, lim.sms, COLS_STAGES)
         if plan is not None:
             return plan
-    return staged_plan(dtype, N, K, x_aligned, r_aligned, limits)
+    plan = staged_plan(dtype, N, K, x_aligned, r_aligned, limits)
+    if plan.path == "wide":
+        return cluster_plan(dtype, N, K, x_aligned, limits) or plan
+    return plan
 
 
 def staged_plan(dtype: torch.dtype, N: int, K: int, x_aligned: bool, r_aligned: bool,
@@ -166,7 +242,8 @@ def staged_plan(dtype: torch.dtype, N: int, K: int, x_aligned: bool, r_aligned: 
     design, and still its own where that does not take the shape):
     "staged" with 16-byte loads (K a multiple of 4 f32 / 8 bf16, X and r
     16-byte aligned) or "scalar", with R the largest of 8, 4, 2, 1 rows
-    whose buffers fit, else "wide"."""
+    whose buffers fit, else "wide" (the dispatcher's "cluster" takes most
+    of those shapes; comparisons launch this plan beside it)."""
     full = _CODES[dtype][1]
     vec = full if K % full == 0 and x_aligned and r_aligned else 1
     lim = limits(vec)
@@ -178,8 +255,10 @@ def staged_plan(dtype: torch.dtype, N: int, K: int, x_aligned: bool, r_aligned: 
     return Plan("wide", vec, min(_cdiv(4 * lim.sms, strips), N), 0)
 
 
-def kernel_name(dtype: torch.dtype) -> str:
-    return "deflate_f32" if dtype == torch.float32 else "deflate_bf16"
+def kernel_name(dtype: torch.dtype, path: str = "staged") -> str:
+    """The kernel a launch on `path` counts in `launches`."""
+    name = "deflate_f32" if dtype == torch.float32 else "deflate_bf16"
+    return name + "_cluster" if path == "cluster" else name
 
 
 def deflate_pass_plain(X: torch.Tensor, r: torch.Tensor):
@@ -213,6 +292,16 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.pls_deflate_cols_pass.restype = ctypes.c_int
+    lib.pls_deflate_cluster_limits.argtypes = [ctypes.c_int, ctypes.c_int,
+                                               ctypes.POINTER(ctypes.c_int),
+                                               ctypes.POINTER(ctypes.c_int)]
+    lib.pls_deflate_cluster_limits.restype = ctypes.c_int
+    lib.pls_deflate_cluster_pass.argtypes = [
+        ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 6,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.pls_deflate_cluster_pass.restype = ctypes.c_int
     lib.pls_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pls_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -232,12 +321,15 @@ def _check(err: int, what: str) -> None:
 def _limits(device_index: int, code: int, vec: int) -> Limits:
     """The device's limits for one (dtype, vector width); also raises the
     kernels' shared memory limits there."""
-    staged, cols, sms = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    staged, cols, sms, cluster = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    clusters = (ctypes.c_int * len(CLUSTER_SIZES))()
     with torch.cuda.device(device_index):
         _check(_library().pls_deflate_limits(code, vec, ctypes.byref(staged), ctypes.byref(cols),
                                              ctypes.byref(sms)),
                "deflation kernel limits")
-    return Limits(staged.value, cols.value, sms.value)
+        _check(_library().pls_deflate_cluster_limits(code, vec, ctypes.byref(cluster), clusters),
+               "cluster kernel limits")
+    return Limits(staged.value, cols.value, sms.value, cluster.value, tuple(clusters))
 
 
 @functools.lru_cache(maxsize=64)
@@ -260,7 +352,8 @@ def plan_for(X: torch.Tensor, r: torch.Tensor) -> Plan:
 
 def staged_plan_for(X: torch.Tensor, r: torch.Tensor) -> Plan:
     """The row-staged design's plan for these CUDA tensors: what K2 ran
-    before the column-owning design, for comparisons (`_launch`)."""
+    before the column-owning design, and the two-pass "wide" form where
+    the dispatcher plans "cluster", for comparisons (`_launch`)."""
     return _plan(staged_plan, *_shape(X, r))
 
 
@@ -302,11 +395,14 @@ def _launch(X: torch.Tensor, r: torch.Tensor, planner: Callable[..., Plan]):
                 partial.data_ptr())
         if plan.path == "cols":
             err = lib.pls_deflate_cols_pass(*ptrs, N, K, plan.G, plan.S, plan.stages, stream)
+        elif plan.path == "cluster":
+            err = lib.pls_deflate_cluster_pass(_CODES[X.dtype][0], plan.vec, *ptrs, N, K, plan.G,
+                                               plan.C, plan.R, plan.stages, stream)
         else:
             err = lib.pls_deflate_pass(_CODES[X.dtype][0], plan.vec, *ptrs, N, K, plan.G, plan.R,
                                        stream)
     _check(err, f"deflation kernel launch ({plan.path} path)")
-    launches[kernel_name(X.dtype)] += 1
+    launches[kernel_name(X.dtype, plan.path)] += 1
     path_launches[plan.path] += 1
     return t, tt, p
 

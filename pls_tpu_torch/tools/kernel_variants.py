@@ -20,7 +20,15 @@ X, as the JAX tool does.  One line per row:
 - the variants (`default_variants`): K3 `vpu_1k_*` and K4
   `mxu_{prec}_r8_s{slots}` (its ring of 8-row slots) on float32 X, or
   K5 with KV_BF16: the row-staged `vpu_bf16_*` and the column-owning
-  `cols_bf16_w{warps}[x{blocks}]_s{stages}`.
+  `cols_bf16_w{warps}[x{blocks}]_s{stages}`;
+- at a K where the shipped kernel takes the cluster path (past one staged
+  row), the rows after the plain form are instead the two-pass form it
+  replaces (`two_pass_{dtype}`, `ops.deflate.staged_plan_for`) and every
+  plan of the cluster kernel the card can hold
+  (`cluster_c{C}_r{R}_s{slots}_g{G}`: each plan of
+  `ops.deflate.cluster_plans` with 2 slots and up, at 2, 3 and the most
+  slots that fit): the data behind `cluster_plan`'s choice.  The variants
+  take narrower K.
 
 Each row gives ms per component and one-pass GB/s (N·K·itemsize over the
 time), err_p = max|p − p₆₄| / max|p₆₄| and err_tt = |tt − tt₆₄| / tt₆₄, the
@@ -39,6 +47,7 @@ fails prints FAILED and the tool then exits 1.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -73,8 +82,25 @@ def default_variants(bf16: bool) -> list[dv.Variant | dv.ColsVariant]:
 
 
 def _shipped_staged(X: torch.Tensor, r: torch.Tensor):
-    """K2's earlier row-staged design, launched on the same X."""
+    """The row-staged design's plan, launched on the same X: K2's earlier
+    design, or the two-pass form where the shipped kernel plans "cluster"."""
     return deflate._launch(X, r, deflate.staged_plan_for)
+
+
+def cluster_steps(X: torch.Tensor, r: torch.Tensor) -> list[tuple]:
+    """(name, step) of every cluster plan the card can hold for X: each
+    plan of `cluster_plans` with at least 2 ring slots, at 2, 3 and its
+    most slots."""
+    N, K = X.shape
+    code = deflate._CODES[X.dtype][0]
+    steps = []
+    for plan in deflate.cluster_plans(X.dtype, N, K, X.data_ptr() % 16 == 0,
+                                      lambda vec: deflate._limits(X.device.index, code, vec), 2):
+        for stages in sorted({2, 3, plan.stages} & set(range(2, plan.stages + 1))):
+            alt = dataclasses.replace(plan, stages=stages)
+            steps.append((f"cluster_c{alt.C}_r{alt.R}_s{stages}_g{alt.G}",
+                          lambda X, r, alt=alt: deflate._launch(X, r, lambda *_: alt)))
+    return steps
 
 
 def _event_ms(fn) -> float:
@@ -140,10 +166,15 @@ def sweep(n: int, k: int, iters: int, bf16: bool, seed: int = 0) -> list[dict]:
     print(f"{'copy':24s} {copy_ms:8.4f} ms      {rows[0]['gbs']:8.1f} GB/s (read+write)  torch",
           flush=True)
     steps = [(f"shipped_{dname}", deflate.deflate_pass_cuda, "cuda", None)]
-    if bf16:
+    cluster = deflate.plan_for(X, r0).path == "cluster"
+    if bf16 and not cluster:
         steps.append(("shipped_bf16_staged", _shipped_staged, "cuda", None))
     steps.append((f"plain_{dname}", deflate.deflate_pass_plain, "torch", None))
-    steps += [(v.name, v.cuda, "cuda", v) for v in default_variants(bf16)]
+    if cluster:
+        steps.append((f"two_pass_{dname}", _shipped_staged, "cuda", None))
+        steps += [(name, step, "cuda", None) for name, step in cluster_steps(X, r0)]
+    else:
+        steps += [(v.name, v.cuda, "cuda", v) for v in default_variants(bf16)]
     for name, step, route, variant in steps:
         try:
             t, tt, p = step(X, r0)
@@ -161,6 +192,9 @@ def sweep(n: int, k: int, iters: int, bf16: bool, seed: int = 0) -> list[dict]:
         if variant is not None:
             row["G"], row["R"], row["per_sm"] = variant.plan(X, r0)
             plan = f"  R={row['R']} G={row['G']} blocks/SM={row['per_sm']}"
+        elif cluster and step is deflate.deflate_pass_cuda:
+            sp = deflate.plan_for(X, r0)
+            plan = f"  cluster_c{sp.C}_r{sp.R}_s{sp.stages}_g{sp.G}"
         rows.append(row)
         print(f"{name:24s} {ms:8.4f} ms/comp {row['gbs']:8.1f} GB/s  "
               f"err_p={err_p:.2e} err_tt={err_tt:.2e}  {route}{plan}", flush=True)

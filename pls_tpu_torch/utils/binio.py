@@ -342,9 +342,9 @@ def npy_chunks(x_path: str, y_path: str, chunk_rows: int, *, threaded=True,
 
 
 def auto_chunk_rows(x_dtype) -> int:
-    """Default rows per chunk: 32768 for 2-byte X, 16384 for wider X (the
-    JAX package's defaults, `pls_tpu/utils/binio.py:408-414`; the H100
-    reading is in PERF.md)."""
+    """Default rows per chunk: 32768 for 2-byte X, 16384 for wider X.  These
+    are the JAX package's defaults (`pls_tpu/utils/binio.py:408-414`),
+    chosen on a TPU; they have not been measured on the H100."""
     return 32768 if x_dtype.itemsize < 4 else 16384
 
 

@@ -13,21 +13,28 @@ The bf16 inputs are bit-identical (both packages round to nearest even).
 In float64 the two products agree to 1e-12.
 
 The wrapper's choice of path (`choose_plan`: cols / staged / scalar /
-wide) is plain Python and is checked here with the H100's limits (132
-SMs, 227 KB of shared memory a block): K % 8 != 0, misaligned X or r,
-K too wide for the column-owning design or for the staged form, and a
-ragged last tile; so is the row-staged design's own plan (`staged_plan`),
-which comparisons launch beside the cols path.  So is the rule that the port runs on the card unless
+cluster / wide) is plain Python and is checked here with the H100's
+limits (132 SMs, 227 KB of shared memory a block, the resident clusters
+of each size): K % 8 != 0, misaligned X or r, K too wide for the
+column-owning design or for the staged form, the cluster size at wide K
+(and every plan of the cluster kernel the timing sweep launches), K past
+the cluster kernel's 262 144 columns, and a ragged last tile; so is the
+row-staged design's own plan (`staged_plan`), which comparisons launch
+beside the cols and cluster paths.  The plain twin is held to the TPU
+kernel at wide K too (up to 131 072 columns), and a float64 fit at a wide
+K to the JAX package's fit.  So is the rule that the port runs on the card unless
 asked for the CPU: without a card `default_device()` raises, and the CLI
 and the `.npy` entry points refuse to run unless given the CPU.
 
 The CUDA kernel itself runs only on a card: those cases are marked `gpu`
 and skip here.  On the card they hold the kernel against the plain version
 on the same inputs (1e-5 relative) at the CPU shapes, at K too wide for
-the staged form (the two-pass wide-K form), and with an r that is not
-16-byte aligned; and K2's column-owning path against the plain version
-and float64 of the bf16-rounded X at 4096×5000, 65536×2048, a ragged
-4099×5000 and K = 8 (1e-5 relative, bit-identical relaunches).
+the staged form, and with an r that is not 16-byte aligned; K2's
+column-owning path against the plain version and float64 of the
+bf16-rounded X at 4096×5000, 65536×2048, a ragged 4099×5000 and K = 8
+(1e-5 relative, bit-identical relaunches); and the cluster path against
+the plain version and the two-pass form at wide K (1e-5 relative,
+bit-identical relaunches, counted on the cluster path).
 """
 
 import contextlib
@@ -39,9 +46,13 @@ import numpy as np
 import pytest
 import torch
 
-from pls_tpu.ops.deflate import _deflate_pass_pallas, deflate_pass_xla
+import pls_tpu as pt
+from pls_tpu.models import kernel_pls as jax_kernel_pls
+from pls_tpu.ops.deflate import _TILE_BUDGET, _deflate_pass_pallas, deflate_pass_xla
 from pls_tpu_torch import config
+from pls_tpu_torch.models import kernel_pls
 from pls_tpu_torch.ops import deflate
+from pls_tpu_torch.types import METHOD
 from pls_tpu_torch.utils import binio, nvcc
 
 SHAPES = [(256, 128), (300, 200), (64, 640), (130, 128), (60, 401)]
@@ -60,6 +71,17 @@ def _rel(a, b) -> float:
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("N,K", SHAPES)
 def test_plain_matches_pallas_kernel(N, K, dtype):
+    _plain_vs_pallas(N, K, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,K", [(40, 20_000), (24, 65_536), (16, 131_072)])
+def test_plain_matches_pallas_kernel_wide_k(N, K, dtype):
+    # the K of the cluster path, up to the TPU kernel's one-pass limit in f32
+    _plain_vs_pallas(N, K, dtype)
+
+
+def _plain_vs_pallas(N, K, dtype):
     X, r = _operands(N, K)
     X32, r32 = X.astype(np.float32), r.astype(np.float32)
     Xj = jnp.asarray(X32).astype(dtype)
@@ -147,8 +169,12 @@ def test_library_name_follows_included_header(tmp_path, monkeypatch):
 
 
 # ---------- the wrapper's choice of path, with the H100's limits ----------
-H100 = {4: deflate.Limits(232_416, 0, 132), 8: deflate.Limits(232_416, 230_272, 132),
-        1: deflate.Limits(232_416, 0, 132)}
+# the cluster kernel's budget and resident clusters of 2, 4, 8, 16 CTAs as the
+# H100 80GB HBM3 reports them (`pls_deflate_cluster_limits`)
+CLUSTER_LIMITS = dict(cluster=231_552, clusters=(66, 30, 15, 7))
+H100 = {4: deflate.Limits(232_416, 0, 132, **CLUSTER_LIMITS),
+        8: deflate.Limits(232_416, 230_272, 132, **CLUSTER_LIMITS),
+        1: deflate.Limits(232_416, 0, 132, **CLUSTER_LIMITS)}
 
 
 def _choose(dtype, N, K, x_aligned=True, r_aligned=True, planner=deflate.choose_plan):
@@ -189,10 +215,10 @@ def test_ragged_last_tile_is_planned_not_padded():
     (torch.bfloat16, 100, 5000, True, False, "cols", 8, 4),     # cols reads r by scalars
     (torch.bfloat16, 1000, 10_248, True, True, "staged", 8, 4),  # past cols' registers
     (torch.bfloat16, 1000, 16_384, True, True, "staged", 8, 2),
-    (torch.bfloat16, 2048, 30_000, True, True, "wide", 8, 0),   # past the staged form
+    (torch.bfloat16, 2048, 30_000, True, True, "cluster", 8, 2),  # past the staged form
     (torch.float32, 100_000, 5000, True, True, "staged", 4, 4),  # K1
     (torch.float32, 300, 5004, True, False, "scalar", 1, 4),
-    (torch.float32, 2048, 30_000, True, True, "wide", 4, 0),
+    (torch.float32, 2048, 30_000, True, True, "cluster", 4, 1),
 ])
 def test_path_choice(dtype, N, K, x_aligned, r_aligned, path, vec, R):
     plan = _choose(dtype, N, K, x_aligned, r_aligned)
@@ -200,6 +226,8 @@ def test_path_choice(dtype, N, K, x_aligned, r_aligned, path, vec, R):
     if path == "wide":
         strips = -(-(K // vec) // deflate.STAGED_THREADS)
         assert plan.G == min(-(-4 * 132 // strips), N)
+    elif path == "cluster":
+        assert plan.G == min(CLUSTER_LIMITS["clusters"][0], -(-N // plan.R)) and plan.C == 2
     else:
         assert plan.G == min(132, -(-N // plan.R))
 
@@ -216,8 +244,145 @@ def test_forced_paths():
     assert staged(torch.bfloat16, 100_000, 5000, False).path == "scalar"
     assert staged(torch.bfloat16, 100, 40_000).path == "wide"
     for args in [(torch.bfloat16, 60, 401), (torch.bfloat16, 1000, 16_384),
-                 (torch.float32, 100_000, 5000), (torch.float32, 2048, 30_000)]:
+                 (torch.float32, 100_000, 5000)]:
         assert staged(*args) == _choose(*args)
+    # at wide K the dispatcher takes the cluster path; the two-pass form
+    # stays the row-staged design's plan, for the timing beside it
+    assert staged(torch.float32, 2048, 30_000).path == "wide"
+    assert _choose(torch.float32, 2048, 30_000).path == "cluster"
+
+
+def test_one_pass_range_is_the_tpu_kernels():
+    # the cluster path reads X once across the TPU kernel's whole one-pass
+    # range (a 16-row tile within its VMEM budget), and in f32 past it up to
+    # the cluster kernel's own 16 CTAs × 512 threads × 32 columns
+    widest = 16 * deflate.CLUSTER_THREADS * deflate.CLUSTER_COLS
+    assert widest == 262_144
+    for dtype, itemsize in ((torch.float32, 4), (torch.bfloat16, 2)):
+        tpu = _TILE_BUDGET // (16 * itemsize)
+        assert tpu <= widest
+        assert _choose(dtype, 64, tpu).path == "cluster"
+        assert _choose(dtype, 64, widest).path == "cluster"
+        assert _choose(dtype, 64, widest + 8).path == "wide"
+
+
+@pytest.mark.parametrize("dtype,N,K,vec,C,R,stages", [
+    (torch.float32, 2048, 30_000, 4, 2, 1, 3),     # 15 000 columns a CTA, 60 KB a row
+    (torch.float32, 512, 65_536, 4, 4, 1, 3),
+    (torch.float32, 256, 131_072, 4, 8, 1, 3),     # the TPU kernel's widest f32 K
+    (torch.float32, 64, 140_000, 4, 16, 2, 3),     # past it: clusters of 16
+    (torch.float32, 128, 262_144, 4, 16, 1, 3),    # the cluster kernel's widest K
+    (torch.float32, 100, 20_000, 4, 2, 1, 5),      # just past the staged form: 40 KB a row
+    (torch.bfloat16, 2048, 30_000, 8, 2, 2, 3),
+    (torch.bfloat16, 512, 65_536, 8, 4, 2, 3),
+    (torch.bfloat16, 256, 131_072, 8, 8, 2, 3),
+    (torch.bfloat16, 128, 262_144, 8, 16, 2, 3),   # the widest bf16 K: clusters of 16
+    (torch.float32, 1024, 30_001, 1, 2, 1, 3),     # ragged K: 4-byte staging
+    (torch.bfloat16, 1024, 30_001, 1, 2, 2, 3),
+])
+def test_cluster_plan(dtype, N, K, vec, C, R, stages):
+    plan = _choose(dtype, N, K)
+    assert (plan.path, plan.vec, plan.C, plan.R, plan.stages) == ("cluster", vec, C, R, stages)
+    i = deflate.CLUSTER_SIZES.index(C)
+    assert plan.G == min(CLUSTER_LIMITS["clusters"][i], -(-N // R))
+    # each thread holds at most CLUSTER_COLS columns of its CTA's slice ...
+    slice_cols = -(-(K // vec) // C) * vec
+    assert -(-slice_cols // vec // deflate.CLUSTER_THREADS) * vec <= deflate.CLUSTER_COLS
+    # ... and the ring fits the CTA's shared memory, which one cluster size less could not hold
+    row = deflate.cluster_row_bytes(K, C, vec, 4 if dtype == torch.float32 else 2)
+    assert stages * R * row <= CLUSTER_LIMITS["cluster"]
+    if C > 2:
+        half = -(-(K // vec) // (C // 2)) * vec
+        assert -(-half // vec // deflate.CLUSTER_THREADS) * vec > deflate.CLUSTER_COLS
+
+
+def test_cluster_plan_edges():
+    # X not 16-byte aligned: 4-byte staging, the same cluster; r's alignment does not matter
+    plan = _choose(torch.float32, 2048, 30_000, x_aligned=False)
+    assert (plan.path, plan.vec, plan.C) == ("cluster", 1, 2)
+    assert _choose(torch.float32, 2048, 30_000, r_aligned=False) == _choose(
+        torch.float32, 2048, 30_000)
+    # fewer rows than resident clusters: one cluster a tile
+    assert _choose(torch.float32, 3, 30_000).G == 3
+    assert _choose(torch.bfloat16, 5, 30_000).G == 3  # 2-row tiles
+    # past the cluster kernel's 262 144 columns (also ragged): the two-pass form
+    for dtype, K in ((torch.float32, 262_148), (torch.float32, 262_145),
+                     (torch.float32, 300_000), (torch.bfloat16, 262_152)):
+        assert _choose(dtype, 64, K).path == "wide"
+    # a device that cannot launch clusters of 16: past 131 072 columns is two-pass
+    no16 = {v: deflate.Limits(232_416, lim.cols, 132, 231_552, (66, 30, 15, 0))
+            for v, lim in H100.items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = deflate.choose_plan(dtype, 128, 262_144, True, True, no16.__getitem__)
+        assert plan.path == "wide"
+    # a shared memory budget too small for three one-row slots at C = 2 takes C = 4
+    small = {v: deflate.Limits(232_416, lim.cols, 132, 150_000, (66, 30, 15, 7))
+             for v, lim in H100.items()}
+    assert deflate.choose_plan(torch.float32, 2048, 30_000, True, True,
+                               small.__getitem__).C == 4
+
+
+@pytest.mark.parametrize("dtype,N,K,x_aligned,sizes", [
+    (torch.float32, 20_000, 30_000, True, (2, 4, 8, 16)),
+    (torch.bfloat16, 20_000, 30_000, True, (2, 4, 8, 16)),
+    (torch.float32, 8192, 65_536, True, (4, 8, 16)),
+    (torch.float32, 8192, 131_072, True, (8, 16)),
+    (torch.bfloat16, 4096, 262_144, True, (16,)),
+    (torch.float32, 1024, 30_001, True, (2, 4, 8, 16)),  # ragged K: 4-byte staging
+    (torch.float32, 64, 262_152, True, ()),              # past the kernel's columns
+])
+def test_cluster_plans_enumerate_what_the_kernel_holds(dtype, N, K, x_aligned, sizes):
+    # the timing sweep's plans (tools/kernel_variants.py): every (C, R) with
+    # at least `min_stages` ring slots; the first at 3 slots is the planner's
+    plans = list(deflate.cluster_plans(dtype, N, K, x_aligned, H100.__getitem__, 2))
+    assert tuple(sorted({p.C for p in plans})) == sizes
+    itemsize = 4 if dtype == torch.float32 else 2
+    for p in plans:
+        i = deflate.CLUSTER_SIZES.index(p.C)
+        row = deflate.cluster_row_bytes(K, p.C, p.vec, itemsize)
+        assert 2 <= p.stages <= deflate.CLUSTER_MAX_STAGES
+        assert p.stages * p.R * row <= CLUSTER_LIMITS["cluster"]
+        assert (p.stages + 1) * p.R * row > CLUSTER_LIMITS["cluster"] or (
+            p.stages == deflate.CLUSTER_MAX_STAGES)
+        assert -(-(K // p.vec) // p.C // deflate.CLUSTER_THREADS) * p.vec <= deflate.CLUSTER_COLS
+        assert p.G == min(CLUSTER_LIMITS["clusters"][i], -(-N // p.R))
+    # in the planner's order: C ascending, R descending within it
+    assert [(p.C, -p.R) for p in plans] == sorted((p.C, -p.R) for p in plans)
+    first = next((p for p in plans if p.stages >= deflate.CLUSTER_MIN_STAGES), None)
+    assert deflate.cluster_plan(dtype, N, K, x_aligned, H100.__getitem__) == first
+
+
+def test_kernel_names_per_path():
+    assert deflate.kernel_name(torch.float32) == "deflate_f32"
+    assert deflate.kernel_name(torch.bfloat16, "cols") == "deflate_bf16"
+    assert deflate.kernel_name(torch.float32, "cluster") == "deflate_f32_cluster"
+    assert deflate.kernel_name(torch.bfloat16, "cluster") == "deflate_bf16_cluster"
+    assert set(deflate.launches) == {deflate.kernel_name(d, p) for d in deflate.KERNEL_DTYPES
+                                     for p in ("staged", "cluster")}
+    assert "cluster" in deflate.PATHS
+
+
+@pytest.mark.parametrize("M", [1, 3])
+def test_wide_k_fit_matches_jax_in_float64(M):
+    # a fit at a K past the staged form (the cluster path's on the card) and
+    # N < K, in float64 on the CPU: the plain pass, held to the JAX package
+    rng = np.random.default_rng(11)
+    N, K, A = 48, 20_001, 5
+    L = rng.normal(size=(N, 4))
+    X = L @ rng.normal(size=(4, K)) + 0.1 * rng.normal(size=(N, K))
+    Y = L @ rng.normal(size=(4, M)) + 0.1 * rng.normal(size=(N, M))
+    X = (X - X.mean(0)) / X.std(0, ddof=1)
+    Y = (Y - Y.mean(0)) / Y.std(0, ddof=1)
+    f_jax = jax_kernel_pls.fit(jnp.asarray(X), jnp.asarray(Y), A, pt.METHOD.KERNEL_TYPE1)
+    f = kernel_pls.fit(torch.from_numpy(X), torch.from_numpy(Y), A, METHOD.KERNEL_TYPE1)
+    B, Bj = f.R.numpy() @ f.Q.numpy().T, np.asarray(f_jax.R) @ np.asarray(f_jax.Q).T
+    np.testing.assert_allclose(B, Bj, rtol=0, atol=1e-10 * np.abs(Bj).max())
+    s = np.sign(np.sum(f.W.numpy() * np.asarray(f_jax.W), axis=0))
+    for name in ("W", "P", "R", "Q", "T"):
+        mine, ref = getattr(f, name).numpy(), np.asarray(getattr(f_jax, name))
+        assert mine.shape == ref.shape, name
+        if mine.size:
+            np.testing.assert_allclose(mine * s, ref, atol=1e-10, err_msg=name)
 
 
 def test_cols_plan_refuses_what_it_cannot_hold():
@@ -289,7 +454,7 @@ def test_cuda_kernel_matches_plain(N, K, dtype):
 
 
 def _kernel_vs_plain(Xc, rc):
-    name = deflate.kernel_name(Xc.dtype)
+    name = deflate.kernel_name(Xc.dtype, deflate.plan_for(Xc, rc).path)
     before = deflate.launches[name]
     t, tt, p = deflate.deflate_pass(Xc, rc)
     t2, tt2, p2 = deflate.deflate_pass(Xc, rc)
@@ -348,3 +513,67 @@ def test_cuda_cols_path_matches_plain_and_f64(N, K):
     pd = Xd.T @ td
     assert _rel(t.cpu(), td.cpu()) < 1e-5 and _rel(p.cpu(), pd.cpu()) < 1e-5
     assert abs(float(tt) - float(td @ td)) / float(td @ td) < 1e-5
+
+
+CLUSTER_SHAPES = [(torch.float32, 2048, 30_000), (torch.bfloat16, 2048, 30_000),
+                  (torch.float32, 1024, 30_001), (torch.bfloat16, 1024, 30_001),
+                  (torch.float32, 512, 65_536), (torch.bfloat16, 512, 65_536),
+                  (torch.float32, 256, 131_072), (torch.bfloat16, 256, 131_072),
+                  (torch.bfloat16, 128, 262_144), (torch.float32, 64, 140_000),
+                  (torch.float32, 128, 262_144)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,N,K", CLUSTER_SHAPES)
+def test_cuda_cluster_path_matches_plain_and_two_pass(dtype, N, K):
+    # the one-pass cluster kernel at wide K: against the plain version and
+    # the two-pass form it replaces (both 1e-5), relaunches bit-identical,
+    # each launch counted on the cluster path
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    X, r = _operands(N, K, seed=10)
+    Xc = torch.from_numpy(X).float().cuda().to(dtype)
+    rc = torch.from_numpy(r).float().cuda()
+    assert deflate.plan_for(Xc, rc).path == "cluster"
+    assert deflate.staged_plan_for(Xc, rc).path == "wide"
+    before = deflate.path_launches["cluster"]
+    _kernel_vs_plain(Xc, rc)
+    assert deflate.path_launches["cluster"] == before + 2
+    t, tt, p = deflate.deflate_pass(Xc, rc)
+    tw, ttw, pw = deflate._launch(Xc, rc, deflate.staged_plan_for)
+    tp, ttp, pp = deflate.deflate_pass_plain(Xc, rc)
+    for a, b in ((t, tp), (p, pp), (tw, tp), (pw, pp)):
+        assert _rel(a.cpu(), b.cpu()) < 1e-5
+    assert abs(float(ttw) - float(ttp)) / float(ttp) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_cluster_path_unaligned_x(dtype):
+    # X a contiguous view one element into its storage: not 16-byte
+    # aligned, so the cluster kernel stages 4-byte words
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    N, K = 300, 30_000
+    X, r = _operands(N, K, seed=12)
+    buf = torch.zeros(N * K + 1, dtype=dtype, device="cuda")
+    buf[1:] = torch.from_numpy(X).float().cuda().to(dtype).reshape(-1)
+    Xc = buf[1:].view(N, K)
+    assert Xc.is_contiguous() and Xc.data_ptr() % 16
+    rc = torch.from_numpy(r).float().cuda()
+    plan = deflate.plan_for(Xc, rc)
+    assert (plan.path, plan.vec) == ("cluster", 1)
+    _kernel_vs_plain(Xc, rc)
+
+
+@pytest.mark.gpu
+def test_cuda_past_one_pass_range_is_two_pass():
+    # past the cluster kernel's 262 144 columns: the two-pass form
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    X, r = _operands(64, 262_152, seed=13)
+    Xc, rc = torch.from_numpy(X).float().cuda(), torch.from_numpy(r).float().cuda()
+    assert deflate.plan_for(Xc, rc).path == "wide"
+    before = deflate.path_launches["wide"]
+    _kernel_vs_plain(Xc, rc)
+    assert deflate.path_launches["wide"] == before + 2
