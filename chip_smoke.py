@@ -167,7 +167,25 @@ Phases, each of which fails the run:
      nir's example flows (Kennard-Stone split, savgol + SNV, ipls_forward,
      piecewise_ds) in float32 on the card against the port's float64 run
      on the CPU.  The cuts (rows where a call is O(N²) or runs N fits) are
-     the constants IPLS_FWD_N through BOOT.
+     the constants IPLS_FWD_N through BOOT;
+ 12. CSV ingest through the port's host runtime (csrc/native_io.cpp, built
+     by the host C++ compiler): a NIR-style calibration set, 50000×1000 X
+     and 50000×5 Y (rank-30 latent data with column offsets, from --seed),
+     written as headerless CSV of float32 values at %.9g (about 0.55 GB;
+     numpy digit tables on one thread a core) into a temporary directory
+     under build/ (removed at exit); (a) `read_matrix_file` on X through the native
+     loader, timed, in MB/s, and the plain parser on its first 5000 rows
+     (its MB/s), bit-equal to the native loader's rows; the in-memory fit
+     of the z-scored data, A = 10, f32 on the card (K1 10 times) against
+     f64 on the card (FIT_COEF_RTOL); (b) `fit_streaming_csv` on the same
+     files at its default chunk_rows, f32 on the card, against (a)'s f64
+     fit (FIT_COEF_RTOL), with its wall, the wall of one parse-only pass of
+     X and Y, and the device-busy share (CUDA events around each chunk's
+     device work); (c) the native loader's counters (3 whole-file reads,
+     2 × (1 + 2 × passes) chunks) and no reader thread left; (d)
+     `pls_tpu_torch.tools.accumulator_sweep` at its defaults and
+     `pls_tpu_torch.tools.flagship_wall --runs 3`, each in its own process,
+     their JSON lines printed.
 
 The K1/K2 launch counts are set to 0 just before phase 3 and read just
 after phase 4; those of the cluster kernels just before and after phase
@@ -178,7 +196,9 @@ and after phases 8 and 9, whose K1 (and phase 9's K2) launches join phase
 references and reads them after its sharded calls, and its two ranks
 report their own counts, all of which join the record; phase 11 sets
 them to 0 before its calls and reads them after, and its K1 launches
-(not those `roofline_report` times) join the record.  The last
+(not those `roofline_report` times) join the record; so do phase 12's
+(its in-memory fit's, A of them; the tools' processes keep their own
+counts).  The last
 two lines of stdout are the kernels' JSON record (K1-K5 and K1/K2's
 cluster kernels; ms is the back-to-back time per call, K1/K2 at
 100000×5000, their cluster kernels at 20000×30000, K3-K5 of the best
@@ -196,7 +216,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import inspect
 import io
+import itertools
 import json
 import os
 import re
@@ -244,7 +266,9 @@ MAIN_PATH_SHAPES = [(10, 15), (60, 401), BIG, (10_000, 1_000), (BIG[0] // 2, BIG
                     (BIG[0], 2 * BIG[1]), (10_000, 5_000), (1_000, 5_000), (2_000, 500),
                     (45, 401),
                     # and phase 5's fit on the cluster path
-                    WIDE]
+                    WIDE,
+                    # and phase 12's in-memory fit of the CSV calibration set
+                    (50_000, 1_000)]
 # phase 5's wide-K timing: one shape for each cluster size, 2, 4, 8 and 16
 # (8192×131072 the TPU kernel's widest one-pass f32 K), in f32 and bf16
 WIDE_TIMED = [WIDE, (8_192, 65_536), (8_192, 131_072), (4_096, 262_144)]
@@ -373,6 +397,16 @@ IMPUTE = (2_000, 500)  # impute_pls: n_outer dense NIPALS fits
 BOOT = (200, 10_000, 500)  # bootstrap_plspm: replicates, rows, columns (B copies)
 NIPALS_TOL = 1e-6  # the missing-data NIPALS and PLS-PM loops: a float32 tolerance
 RLS_CHUNKS = 10
+
+# phase 12: CSV ingest through the port's host runtime (csrc/native_io.cpp):
+# a NIR-style calibration set of the reference's container, headerless CSV,
+# float32 values printed with 9 significant digits (about 0.55 GB)
+CSV = (50_000, 1_000, 5)  # N, K, M
+CSV_A = 10
+CSV_LATENT = 30
+CSV_PREFIX = 5_000  # rows the plain parser is held bit-equal on
+CSV_BLOCK = 1_000  # rows made and formatted at once
+TOOL_TIMEOUT = 600  # seconds: each of the two tools' subprocess runs
 
 # (kernel name, its source in pls_tpu_torch/csrc, the TPU kernel it
 # replaces, the launch counters that are its launches)
@@ -2419,6 +2453,256 @@ def phase_api_nir(deflate, dev) -> dict:
     return {"s": wall, "k1": d, "rmse_rel": e_rmse, "ev_abs": e_ev, "transfer_rel": e_rec}
 
 
+_P10 = np.array([float(10 ** k) for k in range(13)])  # exact powers of ten
+_D3 = np.frombuffer(b"".join(b"%03d\0" % i for i in range(1000)), np.uint32)  # "ddd" words
+_TZ3 = np.array([3] + [len(b"%03d" % i) - len((b"%03d" % i).rstrip(b"0")) for i in range(1, 1000)])
+
+
+def format_g9(V: np.ndarray, sep: str = ",") -> bytes:
+    """The rows of V as headerless CSV lines, each value as `"%.9g" % v`
+    prints it: nine significant digits, in fixed notation (decimal
+    exponents -4 to 8) with trailing zeros dropped, built from digit tables
+    in numpy; any other value (zero, tiny, huge, not finite) through
+    "%.9g" itself."""
+    rows, K = V.shape
+    v = np.ascontiguousarray(V, np.float64).ravel()
+    n, a = v.size, np.abs(v)
+    fixed = (a >= 1e-4) & (a < 1e9)
+    e = np.clip(np.floor(np.log10(np.where(fixed, a, 1.0))).astype(np.int64), -4, 8)
+    m = np.rint(a * _P10[8 - e])  # the 9 digits, exact: 10^(8-e) ≤ 10^12
+    e += (m >= 1e9).astype(np.int64) - (m < 1e8)  # log10 or the rounding crossed a power of 10
+    fixed &= (e >= -4) & (e <= 8)
+    e = np.clip(e, -4, 8)
+    m = np.rint(a * _P10[8 - e])
+    fixed &= (m >= 1e8) & (m < 1e9)
+    mi = np.where(fixed, m, 1e8).astype(np.int64)
+    g1 = mi // 1_000_000
+    g3 = mi - g1 * 1_000_000
+    g2 = g3 // 1000
+    g3 -= g2 * 1000
+    D = np.empty((n, 9), np.uint8)
+    for j, g in enumerate((g1, g2, g3)):
+        D[:, 3 * j:3 * j + 3] = _D3[g].view(np.uint8).reshape(n, 4)[:, :3]
+    t3, t2 = _TZ3[g3], _TZ3[g2]
+    tz = t3 + (t3 == 3) * (t2 + (t2 == 3) * _TZ3[g1])  # trailing zero digits
+    out = np.zeros((n, 16), np.uint8)  # sign, up to 14 characters, separator; 0 = nothing
+    out[:, 0] = np.where(np.signbit(v), ord("-"), 0)
+    for k in range(-4, 9):
+        idx = np.flatnonzero(fixed & (e == k))
+        if idx.size == 0:
+            continue
+        if k >= 0:  # k + 1 integer digits, '.', 8 - k fraction digits
+            body = np.empty((idx.size, 10), np.uint8)
+            body[:, :k + 1] = D[idx, :k + 1]
+            body[:, k + 1] = ord(".")
+            body[:, k + 2:] = D[idx, k + 1:]
+        else:  # "0.", -k - 1 zeros, the 9 digits
+            body = np.full((idx.size, 10 - k), ord("0"), np.uint8)
+            body[:, 1] = ord(".")
+            body[:, 1 - k:] = D[idx]
+        drop = np.minimum(tz[idx], 8 - k)
+        drop += drop == 8 - k  # no fraction digit left: no '.' either
+        body[np.arange(body.shape[1]) >= (body.shape[1] - drop)[:, None]] = 0
+        out[idx, 1:1 + body.shape[1]] = body
+    for i in np.flatnonzero(~fixed):
+        s = np.frombuffer(b"%.9g" % v[i], np.uint8)
+        out[i, :15] = 0
+        out[i, :s.size] = s
+    out[:, 15] = ord(sep)
+    out.reshape(rows, K, 16)[:, -1, 15] = ord("\n")
+    flat = out.ravel()
+    return flat[flat != 0].tobytes()
+
+
+def csv_block(seed: int, block: int) -> tuple[bytes, bytes]:
+    """Rows [block·CSV_BLOCK, (block + 1)·CSV_BLOCK) of phase 12's
+    calibration set as CSV text (X, Y): a rank-30 latent model plus noise,
+    column offsets of 0.5-3 column σ, float32 values at %.9g.  The model
+    comes from `seed` and the block's rows from (seed, block)."""
+    N, K, M = CSV
+    model = np.random.default_rng([seed, 12])
+    W = model.standard_normal((CSV_LATENT, K))
+    V = model.standard_normal((CSV_LATENT, M))
+    off_x = (0.5 + 2.5 * model.random(K)) * np.sqrt((W * W).sum(0) + 0.25)
+    off_y = (0.5 + 2.5 * model.random(M)) * np.sqrt((V * V).sum(0) + 0.01)
+    rng = np.random.default_rng([seed, 12, block])
+    n = min(CSV_BLOCK, N - block * CSV_BLOCK)
+    lat = rng.standard_normal((n, CSV_LATENT))
+    X = (lat @ W + 0.5 * rng.standard_normal((n, K)) + off_x).astype(np.float32)
+    Y = (lat @ V + 0.1 * rng.standard_normal((n, M)) + off_y).astype(np.float32)
+    return format_g9(X), format_g9(Y)
+
+
+def write_csv_set(tmp: Path, seed: int) -> tuple[Path, Path, float]:
+    """Phase 12's X.csv and Y.csv under tmp, blocks made and formatted on
+    one thread a core (numpy releases the interpreter lock) and written in
+    order; (X path, Y path, seconds)."""
+    xp, yp = tmp / "X.csv", tmp / "Y.csv"
+    t0 = time.perf_counter()
+    with open(xp, "wb") as fx, open(yp, "wb") as fy, ThreadPoolExecutor(os.cpu_count()) as pool:
+        for x, y in pool.map(lambda b: csv_block(seed, b), range(-(-CSV[0] // CSV_BLOCK))):
+            fx.write(x)
+            fy.write(y)
+    return xp, yp, time.perf_counter() - t0
+
+
+def run_tool(module: str, *args: str) -> dict:
+    """Run `python -m <module> args` from this checkout; its last stdout
+    line, a JSON object, parsed."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
+                          cwd=ROOT, env=env, timeout=TOOL_TIMEOUT)
+    check(proc.returncode == 0,
+          f"{module} exited {proc.returncode}:\n{proc.stderr[-2000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    print(f"{module.rsplit('.', 1)[1]}: {line}")
+    return json.loads(line)
+
+
+def phase_csv(deflate, dev, seed: int) -> dict:
+    """Phase 12: CSV ingest through the native loader.  Returns its
+    measurements."""
+    from pls_tpu_torch.model import PLSModel
+    from pls_tpu_torch.models import streaming
+    from pls_tpu_torch.models.predict import coefficients
+    from pls_tpu_torch.ops.stats import colwise_z_scores
+    from pls_tpu_torch.utils import io as pio, native
+
+    N, K, M = CSV
+    A = CSV_A
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_csv_", dir=ROOT / "build"))
+    out: dict = {}
+    try:
+        xp, yp, out["write_s"] = write_csv_set(tmp, seed)
+        xbytes, ybytes = os.path.getsize(xp), os.path.getsize(yp)
+        print(f"phase 12 data: {N}x{K} X ({xbytes} B) and {N}x{M} Y ({ybytes} B), headerless "
+              f"CSV, %.9g of float32, made and written by {os.cpu_count()} threads in "
+              f"{out['write_s']:.3f} s")
+
+        # (a) the whole file through the native loader, the plain parser on a prefix
+        reads0 = dict(pio.native_reads)
+        t0 = time.perf_counter()
+        Xh = pio.read_matrix_file(str(xp))
+        out["native_s"] = time.perf_counter() - t0
+        Yh = pio.read_matrix_file(str(yp))
+        out["native_mbs"] = xbytes / out["native_s"] / 1e6
+        check(Xh.shape == (N, K) and Yh.shape == (N, M) and bool(np.isfinite(Xh).all()),
+              f"read_matrix_file: shapes {Xh.shape}, {Yh.shape} or non-finite")
+        prefix = tmp / "X_prefix.csv"
+        with open(xp, "rb") as f:
+            prefix.write_bytes(b"".join(itertools.islice(f, CSV_PREFIX)))
+        pbytes = os.path.getsize(prefix)
+        t0 = time.perf_counter()
+        plain = pio._read_matrix_python(str(prefix))
+        out["plain_s"] = time.perf_counter() - t0
+        out["plain_mbs"] = pbytes / out["plain_s"] / 1e6
+        native_prefix = pio.read_matrix_file(str(prefix))
+        bit_equal = (plain.shape == native_prefix.shape == (CSV_PREFIX, K)
+                     and plain.tobytes() == native_prefix.tobytes() == Xh[:CSV_PREFIX].tobytes())
+        print(f"read_matrix_file (native): {out['native_s']:.3f} s = {out['native_mbs']:.1f} MB/s "
+              f"of X from the page cache; plain parser on the first {CSV_PREFIX} rows "
+              f"({pbytes} B): {out['plain_s']:.3f} s = {out['plain_mbs']:.1f} MB/s, "
+              f"bit-equal to the native loader's: {bit_equal}")
+        check(bit_equal, "phase 12: the native loader and the plain parser differ on the prefix")
+        out["native_reads_a"] = pio.native_reads["read_matrix"] - reads0["read_matrix"]
+
+        # the in-memory fit on the card: K1 in f32 against f64
+        before = deflate.launches["deflate_f32"]
+        Xz, Yz = (colwise_z_scores(torch.as_tensor(a, dtype=torch.float32, device=dev))
+                  for a in (Xh, Yh))
+        B32, wall32 = synced_wall(lambda: PLSModel(Xz, Yz, max_components=A).coefficients())
+        d32 = deflate.launches["deflate_f32"] - before
+        Xz64, Yz64 = (colwise_z_scores(torch.as_tensor(a, dtype=torch.float64, device=dev))
+                      for a in (Xh, Yh))
+        B64, wall64 = synced_wall(lambda: PLSModel(Xz64, Yz64, max_components=A).coefficients())
+        d64 = deflate.launches["deflate_f32"] - before - d32
+        del Xz, Yz, Xz64, Yz64
+        out["fit_coef_rel"] = rel_err(B32, B64)
+        out["k1"] = d32
+        print(f"in-memory fit {N}x{K}x{M} A={A} f32: {wall32:.4f} s (first fit), K1 {d32}; vs f64 "
+              f"on the card ({wall64:.4f} s, K1 {d64}): coef rel {out['fit_coef_rel']:.3e} "
+              f"(bound {FIT_COEF_RTOL})")
+        check(d32 == A and d64 == 0, f"phase 12 fit: K1 {d32} (f32), {d64} (f64); expected {A}, 0")
+        check(tuple(B32.shape) == (K, M) and bool(torch.isfinite(B32).all()),
+              "phase 12 fit: shape / non-finite")
+        check(out["fit_coef_rel"] <= FIT_COEF_RTOL, "phase 12 f32 fit disagrees with f64")
+
+        # (b) the streaming fit from the files: two passes, X and Y parsed
+        # ahead by their readers' threads; CUDA events around each chunk's
+        # device work (from the chunk's hand-off to the next request)
+        chunk_rows = inspect.signature(streaming.fit_streaming_csv).parameters["chunk_rows"].default
+        t0 = time.perf_counter()
+        for _ in streaming.csv_chunks(str(xp), str(yp), chunk_rows):
+            pass
+        out["parse_pass_s"] = time.perf_counter() - t0
+        spans = []
+        csv_chunks = streaming.csv_chunks
+
+        def timed_chunks(*a, **k):
+            for pair in csv_chunks(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                yield pair
+                e1 = torch.cuda.Event(enable_timing=True)
+                e1.record()
+                spans.append((e0, e1))
+
+        chunks0 = pio.native_reads["chunks"]
+        streaming.csv_chunks = timed_chunks
+        try:
+            fit, out["stream_s"] = synced_wall(lambda: streaming.fit_streaming_csv(
+                str(xp), str(yp), A, device=dev))
+        finally:
+            streaming.csv_chunks = csv_chunks
+        out["stream_chunks"] = pio.native_reads["chunks"] - chunks0
+        busy = sum(e0.elapsed_time(e1) for e0, e1 in spans) / 1e3
+        out["busy_share"] = busy / out["stream_s"]
+        out["stream_per_parse"] = out["stream_s"] / out["parse_pass_s"]
+        # parse-bound, the fit takes its probe's chunk and two passes of parse
+        out["stream_per_parse_bound"] = out["stream_per_parse"] / (2 + chunk_rows / N)
+        Bs = coefficients(fit)
+        out["stream_coef_rel"] = rel_err(Bs, B64)
+        passes = -(-N // chunk_rows)
+        print(f"fit_streaming_csv A={A} f32 chunk_rows={chunk_rows}: wall {out['stream_s']:.3f} s "
+              f"= {out['stream_per_parse']:.3f} parse passes (one parse-only pass of X and Y: "
+              f"{out['parse_pass_s']:.3f} s); device busy {busy:.4f} s = "
+              f"{out['busy_share']:.4f} of the wall over {len(spans)} chunk hand-offs; "
+              f"coef rel {out['stream_coef_rel']:.3e} vs the f64 in-memory fit "
+              f"(bound {FIT_COEF_RTOL}); native chunks {out['stream_chunks']}")
+        hidden = out["stream_per_parse_bound"] <= 1.1
+        print(f"  the wall is {out['stream_per_parse_bound']:.3f} of the probe's chunk and two "
+              "parse passes: the readers' background parse "
+              + ("overlaps the device, whose work hides behind the parse" if hidden else
+                 "does not hide the device's work"))
+        check(tuple(Bs.shape) == (K, M) and bool(torch.isfinite(Bs).all()),
+              "phase 12 streaming fit: shape / non-finite")
+        check(out["stream_coef_rel"] <= FIT_COEF_RTOL,
+              f"phase 12 streaming fit: coef rel {out['stream_coef_rel']:.2e} > {FIT_COEF_RTOL}")
+        del fit, Bs, B32, B64
+
+        # (c) the native loader carried (a) and (b), and every reader's thread is joined
+        check(out["native_reads_a"] == 3, f"phase 12 (a): {out['native_reads_a']} native reads")
+        check(out["stream_chunks"] == 2 * (1 + 2 * passes),
+              f"phase 12 (b): {out['stream_chunks']} native chunks, expected {2 * (1 + 2 * passes)}")
+        check(native.live_readers() == 0, "phase 12: a chunk reader's thread was left running")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    # (d) the two measurement tools, each in its own process on this card
+    sweep = run_tool("pls_tpu_torch.tools.accumulator_sweep")
+    check(len(sweep["sweep"]) == 8 and all(r["tflops"] > 0 for r in sweep["sweep"].values()),
+          "accumulator_sweep: rows missing or empty")
+    flagship = run_tool("pls_tpu_torch.tools.flagship_wall", "--runs", "3")
+    check(len(flagship["walls_sec"]) == 3 and flagship["warm_best_sec"] > 0,
+          "flagship_wall: walls missing")
+    out["accumulator_sweep"], out["flagship_wall"] = sweep, flagship
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2537,6 +2821,18 @@ def main() -> int:
           f"{json.dumps(api_out, default=str)}")
     check(api_launches["deflate_f32"] > 0, "phase 11 never launched K1")
     launches["deflate_f32"] += api_launches["deflate_f32"]
+
+    for counts in (deflate.launches, dv.launches):  # phase 12's run starts here
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    csv_out = phase_csv(deflate, dev, args.seed)
+    csv_launches = {**deflate.launches, **dv.launches}  # ... and ends here
+    tools = {k: csv_out.pop(k) for k in ("accumulator_sweep", "flagship_wall")}  # printed
+    print(f"phase 12 launches: {csv_launches}; {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(csv_out)}; tools' devices {[t['device'] for t in tools.values()]}")
+    check(csv_launches["deflate_f32"] == CSV_A, "phase 12 launched K1 other than its fit's A times")
+    launches["deflate_f32"] += csv_launches["deflate_f32"]
 
     check("jax" not in sys.modules and "pls_tpu" not in sys.modules, "jax was imported")
     check(all(sum(launches[c] for c in counters) > 0 for *_, counters in KERNELS),

@@ -30,6 +30,7 @@ product, which PyTorch's bf16 matmul (bf16 output) cannot replace.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from dataclasses import dataclass, field
 
@@ -391,20 +392,22 @@ def collect_moments(chunks, K: int, M: int, dtype=torch.float32, device=None):
 
 def csv_chunks(x_path, y_path, chunk_rows: int, separator: str = ","):
     """Aligned (X_chunk, Y_chunk) blocks of two headerless CSVs
-    (utils/io.stream_matrix_file); raises if their row counts differ;
-    `pls_tpu/models/streaming.py:577-594`."""
+    (utils/io.stream_matrix_file: each file parsed ahead on its reader's
+    thread); raises if their row counts differ;
+    `pls_tpu/models/streaming.py:577-594`.  Both readers' threads are
+    joined when this generator ends, raises or is closed."""
     from pls_tpu_torch.utils.io import stream_matrix_file
 
-    xs = stream_matrix_file(x_path, chunk_rows, separator)
-    ys = stream_matrix_file(y_path, chunk_rows, separator)
-    while True:
-        xc = next(xs, None)
-        yc = next(ys, None)
-        if xc is None and yc is None:
-            return
-        if xc is None or yc is None or xc.shape[0] != yc.shape[0]:
-            raise ValueError(f"{x_path} and {y_path} have different numbers of rows")
-        yield xc, yc
+    with contextlib.closing(stream_matrix_file(x_path, chunk_rows, separator)) as xs, \
+            contextlib.closing(stream_matrix_file(y_path, chunk_rows, separator)) as ys:
+        while True:
+            xc = next(xs, None)
+            yc = next(ys, None)
+            if xc is None and yc is None:
+                return
+            if xc is None or yc is None or xc.shape[0] != yc.shape[0]:
+                raise ValueError(f"{x_path} and {y_path} have different numbers of rows")
+            yield xc, yc
 
 
 def fit_streaming_csv(

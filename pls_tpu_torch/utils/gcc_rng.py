@@ -22,12 +22,19 @@ that exact bit stream:
 
 Everything here is validated bit-for-bit against fixtures generated by
 running real libstdc++ code (tests/golden/mt19937_raw.csv, shuffle*.csv,
-*_lso_parts.csv; see tools/golden_gen.cpp).
+*_lso_parts.csv; see tools/golden_gen.cpp), and against the port's host
+runtime, which draws the same streams by literally calling std::mt19937
+and std::shuffle: `gcc_shuffle_trace` and `mt19937_raw` (re-exported from
+`utils/native.py`, built from `csrc/native_io.cpp` at first call).  They
+are the ground truth the emulator is held to; the emulator stays the
+partition source, so that one GccRng's state carries across calls.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from pls_tpu_torch.utils.native import gcc_shuffle_trace, mt19937_raw  # noqa: F401
 
 _U32 = 0xFFFFFFFF
 

@@ -1,4 +1,5 @@
-"""Build a CUDA source of this package with nvcc and load it with ctypes.
+"""Build a CUDA source of this package with nvcc and load it with ctypes
+(the host C++ sources: `utils/cxx.py`, through the same steps).
 
 A source under `pls_tpu_torch/csrc/` is compiled for Hopper (`sm_90a`)
 into a shared library with a plain C interface, at first use, in
@@ -62,37 +63,48 @@ def source_files(source: str) -> list[Path]:
     return files
 
 
-def library_path(source: str) -> Path:
-    """Where the library built from csrc/<source> lives for this text of the
-    source and its headers."""
+def library_path(source: str, command: tuple[str, ...] = NVCC_FLAGS) -> Path:
+    """Where the library built from csrc/<source> by `command` (the
+    compiler's flags, and for the host compiler its name) lives for this
+    text of the source and its headers."""
     digest = hashlib.sha256()
     for f in source_files(source):
         digest.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(command).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
+
+
+def compile_library(argv: list[str], source: str, out: Path) -> None:
+    """Run `argv + ["-o", tmp, csrc/<source>]` and move tmp to `out`.
+    Concurrent builds of one library (test workers) are safe: each writes
+    its own tmp and the move is atomic.  A failed build raises RuntimeError
+    with the tail of the compiler's output; its output on success is kept
+    beside the library as `<name>.log`."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [*argv, "-o", tmp, str(PACKAGE_DIR / "csrc" / source)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            tail = (proc.stdout + proc.stderr)[-8000:]
+            raise RuntimeError(
+                f"{argv[0]} failed on csrc/{source} (exit {proc.returncode}):\n{tail}"
+            )
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)  # atomic: a reader never sees half a library
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 @functools.cache
 def load_library(source: str) -> ctypes.CDLL:
-    """Build csrc/<source> if its library is missing, then load it.  A
-    failed build raises RuntimeError with nvcc's stderr."""
+    """Build csrc/<source> with nvcc if its library is missing, then load
+    it.  A failed build raises RuntimeError with nvcc's output."""
     out = library_path(source)
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(PACKAGE_DIR / "csrc" / source)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on csrc/{source} (exit {proc.returncode}):\n{proc.stderr}"
-                )
-            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, out)  # atomic: a reader never sees half a library
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        compile_library([nvcc_path(), *NVCC_FLAGS], source, out)
     return ctypes.CDLL(str(out))

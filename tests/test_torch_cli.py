@@ -262,6 +262,46 @@ def test_cv_stderr_bytes_match_jax(data, case, jax_stderr):
         assert f"{k}-FOLD Validation:" in mine
 
 
+@pytest.mark.parametrize("data", sorted(PARITY_DATA))
+def test_cli_reads_through_the_native_loader(data, jax_stderr):
+    """The CLI's loader (config.run_pipeline) parses X and Y with the
+    port's host runtime, whose counter says so, and prints pls_tpu's bytes."""
+    from pls_tpu_torch.cli import main
+    from pls_tpu_torch.utils import io as tio
+
+    before = dict(tio.native_reads)
+    mine = _stderr_of(main, _parity_argv(data, "kfold5") + ["--device", "cpu"])
+    assert tio.native_reads == {**before, "read_matrix": before["read_matrix"] + 2}
+    assert mine == jax_stderr[(data, "kfold5")]
+
+
+def _rc_stderr(main, argv):
+    err, out = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, err.getvalue(), out.getvalue()
+
+
+@pytest.mark.parametrize("text", ["1,2,3\n4,5\n", "1,2\n3,x\n", "1,2\n\n3,4\n", "1,2,\n"],
+                         ids=["ragged", "non_numeric", "empty_line", "trailing_separator"])
+def test_cli_bad_csv_exits_as_jax_native(tmp_path, text):
+    """Bad CSV input: the reference's ragged-row message and exit 1, and the
+    native loader's other messages (which the plain parser words otherwise),
+    byte for byte as pls_tpu's CLI on its native path."""
+    from pls_tpu.cli import main as jax_main
+    from pls_tpu_torch.cli import main
+
+    bad, y = tmp_path / "bad.csv", tmp_path / "y.csv"
+    bad.write_text(text)
+    y.write_text("1\n2\n")
+    argv = [str(bad), str(y), "1"]
+    mine = _rc_stderr(main, argv + ["--device", "cpu"])
+    assert mine == _rc_stderr(jax_main, argv)
+    assert mine[0] == 1 and mine[2] == "" and mine[1].count("\n") == 1
+    if text.startswith("1,2,3"):
+        assert mine[1] == "Error: row 1 has 2 columns, but previous row(s) have 3 columns.\n"
+
+
 def test_kfold_json_report(tmp_path):
     from pls_tpu_torch.config import PLSRunConfig, run_pipeline
 

@@ -228,6 +228,23 @@ def test_fit_streaming_csv_matches_jax(tmp_path):
         list(ts.csv_chunks(xp, bad, 16))
 
 
+def test_fit_streaming_csv_native_reader_ragged_chunks(tmp_path):
+    """chunk_rows that does not divide N: the same fit as the JAX package's,
+    every chunk of both files carried by the native reader."""
+    from pls_tpu_torch.utils import io as tio
+
+    X, Y = _raw(n=90)
+    xp, yp = tmp_path / "x.csv", tmp_path / "y.csv"
+    np.savetxt(xp, X, delimiter=",", fmt="%.17g")
+    np.savetxt(yp, Y, delimiter=",", fmt="%.17g")
+    before = tio.native_reads["chunks"]
+    mine = ts.fit_streaming_csv(xp, yp, 3, chunk_rows=25, dtype=torch.float64, device="cpu")
+    # the probe's pair, then two passes of 4 pairs (25, 25, 25, 15 rows)
+    assert tio.native_reads["chunks"] - before == 2 * (1 + 2 * 4)
+    ref = js.fit_streaming_csv(str(xp), str(yp), 3, chunk_rows=25, dtype=jnp.float64)
+    _coef(mine, ref)
+
+
 def test_stats_from_numpy_round_trip():
     X, Y = _raw()
     ref = _accumulate(js, jnp.asarray(X), jnp.asarray(Y), 64, dtype=jnp.float64)
