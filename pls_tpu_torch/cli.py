@@ -15,7 +15,10 @@ Counterpart of `pls_tpu/cli.py` (reference main.cpp:10-44):
   reference's default-seeded mt19937 partitions); `--cv kfold|all` adds
   k-fold validation on the JAX
   package's keyed fold labels, `--rng jax` its keyed LSO partitions;
-- all output on stderr; stdout stays empty.
+- all output on stderr; stdout stays empty;
+- `--trace DIR` writes a torch.profiler trace of the run, with the
+  program's spans (`utils/profiling.SPANS`), to DIR/trace.json; the
+  report is the same.
 
 The run is on CUDA device 0 (`--device cuda`, the default) or, when asked,
 on the CPU (`--device cpu`), the counterpart of the JAX CLI's
@@ -26,6 +29,7 @@ prints "Error: ..." and exits 1: it never falls back to the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 USAGE = (
@@ -89,6 +93,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="matrix rendering in the state dump: real numbers (default) or the "
         "reference's Eigen complex '(re,0)' tuples for byte diffing",
     )
+    p.add_argument(
+        "--trace", metavar="DIR", default=None,
+        help="write a torch.profiler trace of the run, with the program's spans, to "
+        "DIR/trace.json (open it in Perfetto)",
+    )
     return p
 
 
@@ -106,6 +115,7 @@ def main(argv: list[str] | None = None) -> int:
     from pls_tpu_torch.config import PLSRunConfig, default_device, run_pipeline
     from pls_tpu_torch.types import METHOD
     from pls_tpu_torch.utils.io import RaggedMatrixError
+    from pls_tpu_torch.utils.profiling import trace
 
     try:
         device = torch.device("cpu") if args.device == "cpu" else default_device()
@@ -135,7 +145,8 @@ def main(argv: list[str] | None = None) -> int:
         preprocess=args.preprocess,
     )
     try:
-        run_pipeline(cfg, device=device)
+        with trace(args.trace) if args.trace else contextlib.nullcontext():
+            run_pipeline(cfg, device=device)
     except RaggedMatrixError as e:
         print(str(e), file=sys.stderr)
         return e.exit_code

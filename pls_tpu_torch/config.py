@@ -83,6 +83,7 @@ def run_pipeline(cfg: PLSRunConfig, *, file=None, device: torch.device | None = 
     from pls_tpu_torch.types import MSE, default_float_dtype
     from pls_tpu_torch.utils.gcc_rng import GccRng
     from pls_tpu_torch.utils.io import read_matrix_file
+    from pls_tpu_torch.utils.profiling import span
 
     file = sys.stderr if file is None else file
     device = resolve_device(device)
@@ -95,53 +96,65 @@ def run_pipeline(cfg: PLSRunConfig, *, file=None, device: torch.device | None = 
     def read(path):
         return torch.as_tensor(read_matrix_file(path), dtype=dtype, device=device)
 
-    X_raw = read(cfg.x_file)
-    if cfg.preprocess:
-        from pls_tpu_torch.spectral import apply_chain
+    with span("pls.pipeline"):
+        with span("pls.pipeline.read"):
+            X_raw = read(cfg.x_file)
+            if cfg.preprocess:
+                from pls_tpu_torch.spectral import apply_chain
 
-        X_raw = apply_chain(X_raw, cfg.preprocess)
-    X = colwise_z_scores(X_raw)
-    Y = colwise_z_scores(read(cfg.y_file))
-    model = PLSModel(X, Y, cfg.method, cfg.num_components, x_storage=cfg.x_storage)
-    model.print_state(file=file, complex_format=cfg.complex_format)
-    model.print_explained_variance(X, Y, file=file)
+                X_raw = apply_chain(X_raw, cfg.preprocess)
+            Y_raw = read(cfg.y_file)
+        with span("pls.pipeline.zscore"):
+            X = colwise_z_scores(X_raw)
+            Y = colwise_z_scores(Y_raw)
+        with span("pls.pipeline.fit"):
+            model = PLSModel(X, Y, cfg.method, cfg.num_components, x_storage=cfg.x_storage)
+        with span("pls.pipeline.report"):
+            model.print_state(file=file, complex_format=cfg.complex_format)
+            model.print_explained_variance(X, Y, file=file)
+            _, ev_profile = model.explained_variance_profile()
+            report: dict = {
+                "method": cfg.method.value,
+                "num_components": model.A,
+                "dtype": str(dtype).removeprefix("torch."),
+                "device": str(device),
+                "alpha": cfg.alpha,
+                "explained_variance": {
+                    str(c): ev_profile[c - 1].tolist() for c in range(1, model.A + 1)
+                },
+            }
 
-    _, ev_profile = model.explained_variance_profile()
-    report: dict = {
-        "method": cfg.method.value,
-        "num_components": model.A,
-        "dtype": str(dtype).removeprefix("torch."),
-        "device": str(device),
-        "alpha": cfg.alpha,
-        "explained_variance": {
-            str(c): ev_profile[c - 1].tolist() for c in range(1, model.A + 1)
-        },
-    }
+        def record(name, residual):
+            with span("pls.pipeline.select"):
+                print_validation(residual, MSE, file=file, alpha=cfg.alpha)
+                report[f"{name}_rmse"] = validation(residual, MSE).sqrt().tolist()
+                report[f"{name}_optimal_components"] = optimal_num_components(
+                    residual, cfg.alpha
+                ).tolist()
 
-    def record(name, residual):
-        print_validation(residual, MSE, file=file, alpha=cfg.alpha)
-        report[f"{name}_rmse"] = validation(residual, MSE).sqrt().tolist()
-        report[f"{name}_optimal_components"] = optimal_num_components(
-            residual, cfg.alpha
-        ).tolist()
+        if "loo" in cfg.cv:
+            with span("pls.pipeline.loo"):
+                residual = model.cv_LOO()
+            record("loo", residual)
+        if "lso" in cfg.cv:
+            n = X.shape[0]
+            trials = cfg.lso_trials if cfg.lso_trials is not None else 10 * n
+            seed = cfg.seed if cfg.seed is not None else (5489 if cfg.rng == "gcc" else 0)
+            rng = {
+                "gcc": lambda: GccRng(seed),
+                "jax": lambda: seed,  # an int is a JAX seed to cv_LSO
+                "torch": lambda: torch.Generator(device).manual_seed(seed),
+            }[cfg.rng]()
+            with span("pls.pipeline.lso"):
+                residual = model.cv_LSO(cfg.lso_fraction, trials, rng)
+            record("lso", residual)
+        if "kfold" in cfg.cv:
+            report["kfold_k"] = cfg.kfold_k
+            with span("pls.pipeline.kfold"):
+                residual = model.cv_KFOLD(cfg.kfold_k, key=cfg.seed if cfg.seed is not None else 0)
+            record("kfold", residual)
 
-    if "loo" in cfg.cv:
-        record("loo", model.cv_LOO())
-    if "lso" in cfg.cv:
-        n = X.shape[0]
-        trials = cfg.lso_trials if cfg.lso_trials is not None else 10 * n
-        seed = cfg.seed if cfg.seed is not None else (5489 if cfg.rng == "gcc" else 0)
-        rng = {
-            "gcc": lambda: GccRng(seed),
-            "jax": lambda: seed,  # an int is a JAX seed to cv_LSO
-            "torch": lambda: torch.Generator(device).manual_seed(seed),
-        }[cfg.rng]()
-        record("lso", model.cv_LSO(cfg.lso_fraction, trials, rng))
-    if "kfold" in cfg.cv:
-        report["kfold_k"] = cfg.kfold_k
-        record("kfold", model.cv_KFOLD(cfg.kfold_k, key=cfg.seed if cfg.seed is not None else 0))
-
-    if cfg.json_out:
-        with open(cfg.json_out, "w") as f:
-            json.dump(report, f, indent=2)
+        if cfg.json_out:
+            with open(cfg.json_out, "w") as f:
+                json.dump(report, f, indent=2)
     return report

@@ -36,6 +36,7 @@ from pls_tpu_torch.models.kernel_pls import (
 from pls_tpu_torch.models.predict import residuals_all_components
 from pls_tpu_torch.types import METHOD, PLSFit, Residual
 from pls_tpu_torch.utils.jax_prng import permutation
+from pls_tpu_torch.utils.profiling import span
 
 
 def kfold_assignments(n: int, k: int, key=None) -> torch.Tensor:
@@ -92,14 +93,15 @@ def _cv_by_assignment(X, Y, assign: np.ndarray, n_folds: int, A, method, label, 
     a = torch.from_numpy(assign).to(X.device)
     own = None
     for lo in range(0, n_folds, batch_size):
-        ids = torch.arange(lo, min(lo + batch_size, n_folds), device=X.device)
-        f = fit_folds(X, Y, a[None, :] != ids[:, None], A, method, power_iters=power_iters,
-                      precision=precision, x_storage=x_storage)
-        res = residuals_all_components(f, X, Y)  # (F, N, A, M)
-        if own is None:
-            own = res.new_zeros(res.shape[1:])
-        rows = torch.nonzero((a >= lo) & (a < lo + len(ids)))[:, 0]
-        own[rows] = res[a[rows] - lo, rows]
+        with span("pls.cv.fold_batch"):
+            ids = torch.arange(lo, min(lo + batch_size, n_folds), device=X.device)
+            f = fit_folds(X, Y, a[None, :] != ids[:, None], A, method, power_iters=power_iters,
+                          precision=precision, x_storage=x_storage)
+            res = residuals_all_components(f, X, Y)  # (F, N, A, M)
+            if own is None:
+                own = res.new_zeros(res.shape[1:])
+            rows = torch.nonzero((a >= lo) & (a < lo + len(ids)))[:, 0]
+            own[rows] = res[a[rows] - lo, rows]
     return Residual(errors=own.permute(2, 0, 1), method=label)
 
 
@@ -157,26 +159,28 @@ def cv_kfold_downdate(
         Y = Y[:, None]
     N = X.shape[0]
     _check_k(k, N)
-    if assignments is None:
-        assignments = kfold_assignments(N, k, key)
-    idx_np, mask_np = _fold_blocks(_check_assignments(assignments, k), k)
-    idx = torch.from_numpy(idx_np).to(X.device)
-    mask = torch.from_numpy(mask_np).to(X.device)
+    with span("pls.cv.assign"):
+        if assignments is None:
+            assignments = kfold_assignments(N, k, key)
+        idx_np, mask_np = _fold_blocks(_check_assignments(assignments, k), k)
+        idx = torch.from_numpy(idx_np).to(X.device)
+        mask = torch.from_numpy(mask_np).to(X.device)
     if batch_size is None:
         batch_size = min(k, 8)
     XX, XY, Xs, acc = global_stats(X, Y, x_storage, precision)
     own = None
     for lo in range(0, k, batch_size):
-        fi, fm = idx[lo : lo + batch_size], mask[lo : lo + batch_size]
-        m = fm.to(acc)[..., None]
-        Xf = Xs[fi] * m.to(Xs.dtype)  # zero the padded rows (exact)
-        Yf = Y[fi].to(acc) * m
-        f = fit_from_stats_blockdowndated(XX, XY, Xf, Yf, A, power_iters=power_iters,
-                                          precision=precision)
-        errs = residuals_all_components(f, Xf.to(acc), Yf) * m[..., None]  # (F, Nf, A, M)
-        if own is None:
-            own = errs.new_zeros((N, *errs.shape[2:]))
-        own.index_add_(0, fi.reshape(-1), errs.reshape(-1, *errs.shape[2:]))
+        with span("pls.cv.fold_batch"):
+            fi, fm = idx[lo : lo + batch_size], mask[lo : lo + batch_size]
+            m = fm.to(acc)[..., None]
+            Xf = Xs[fi] * m.to(Xs.dtype)  # zero the padded rows (exact)
+            Yf = Y[fi].to(acc) * m
+            f = fit_from_stats_blockdowndated(XX, XY, Xf, Yf, A, power_iters=power_iters,
+                                              precision=precision)
+            errs = residuals_all_components(f, Xf.to(acc), Yf) * m[..., None]  # (F, Nf, A, M)
+            if own is None:
+                own = errs.new_zeros((N, *errs.shape[2:]))
+            own.index_add_(0, fi.reshape(-1), errs.reshape(-1, *errs.shape[2:]))
     return Residual(errors=own.permute(2, 0, 1), method=f"{k}-FOLD")
 
 

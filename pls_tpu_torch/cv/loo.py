@@ -25,6 +25,7 @@ from pls_tpu_torch.models.kernel_pls import _prec_ctx, fit_folds, fit_from_stats
 from pls_tpu_torch.models.predict import residuals_all_components
 from pls_tpu_torch.types import METHOD, Residual
 from pls_tpu_torch.utils.batching import chunked_map, default_batch_size
+from pls_tpu_torch.utils.profiling import span
 
 
 def make_loo_fold_fn(
@@ -44,12 +45,13 @@ def make_loo_fold_fn(
     rows = torch.arange(X.shape[0], device=X.device)
 
     def folds(idx: torch.Tensor) -> torch.Tensor:
-        masks = rows[None, :] != idx[:, None]
-        f = fit_folds(
-            X, Y, masks, A, method, power_iters=power_iters,
-            precision=precision, x_storage=x_storage,
-        )
-        return residuals_all_components(f, X[idx][:, None, :], Y[idx][:, None, :])[:, 0]
+        with span("pls.cv.fold_batch"):
+            masks = rows[None, :] != idx[:, None]
+            f = fit_folds(
+                X, Y, masks, A, method, power_iters=power_iters,
+                precision=precision, x_storage=x_storage,
+            )
+            return residuals_all_components(f, X[idx][:, None, :], Y[idx][:, None, :])[:, 0]
 
     return folds
 
@@ -84,12 +86,10 @@ def global_stats(X: torch.Tensor, Y: torch.Tensor, x_storage: str | None, precis
     run in float32 on Y rounded to bfloat16, as the JAX package's
     `preferred_element_type` products)."""
     acc = X.dtype if X.element_size() >= 4 else torch.float32
-    Xs = X
-    if x_storage is not None:
-        if x_storage not in ("bf16", "bfloat16"):
-            raise ValueError(f"unknown x_storage {x_storage!r} (use 'bf16')")
-        Xs = X.to(torch.bfloat16)
-    with _prec_ctx(precision):
+    if x_storage is not None and x_storage not in ("bf16", "bfloat16"):
+        raise ValueError(f"unknown x_storage {x_storage!r} (use 'bf16')")
+    with span("pls.cv.global_stats"), _prec_ctx(precision):
+        Xs = X if x_storage is None else X.to(torch.bfloat16)
         if Xs.element_size() < 4:
             Xw = Xs.to(acc)
             return Xw.mT @ Xw, Xw.mT @ Y.to(torch.bfloat16).to(acc), Xs, acc

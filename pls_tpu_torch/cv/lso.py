@@ -27,6 +27,7 @@ from pls_tpu_torch.models.predict import residuals_all_components
 from pls_tpu_torch.types import METHOD, Residual
 from pls_tpu_torch.utils.jax_prng import permutation, split
 from pls_tpu_torch.utils.batching import chunked_map, default_batch_size
+from pls_tpu_torch.utils.profiling import span
 
 
 def lso_sizes(n_rows: int, test_fraction: float) -> tuple[int, int]:
@@ -57,7 +58,8 @@ def _partitions(N, num_trials, generator, key, partitions, device) -> torch.Tens
         rng = key if key is not None else generator
         if rng is None:
             raise ValueError("give `key`, `generator` or `partitions`")
-        partitions = random_partitions(rng, N, num_trials)
+        with span("pls.lso.partitions"):
+            partitions = random_partitions(rng, N, num_trials)
     partitions = torch.as_tensor(partitions, device=device)
     if tuple(partitions.shape) != (num_trials, N):
         raise ValueError(
@@ -122,14 +124,15 @@ def lso_errors(
         batch_size = default_batch_size(num_trials, N, K, X.element_size())
 
     def trials(perms: torch.Tensor) -> torch.Tensor:
-        masks = torch.zeros(perms.shape, dtype=X.dtype, device=X.device)
-        masks.scatter_(1, perms[:, :train_size], 1.0)
-        test_idx = perms[:, train_size:]
-        f = fit_folds(
-            X, Y, masks, A, method, power_iters=power_iters,
-            precision=precision, x_storage=x_storage,
-        )
-        return residuals_all_components(f, X[test_idx], Y[test_idx])  # (F, test, A, M)
+        with span("pls.cv.fold_batch"):
+            masks = torch.zeros(perms.shape, dtype=X.dtype, device=X.device)
+            masks.scatter_(1, perms[:, :train_size], 1.0)
+            test_idx = perms[:, train_size:]
+            f = fit_folds(
+                X, Y, masks, A, method, power_iters=power_iters,
+                precision=precision, x_storage=x_storage,
+            )
+            return residuals_all_components(f, X[test_idx], Y[test_idx])  # (F, test, A, M)
 
     errs = chunked_map(trials, partitions, batch_size)  # (trials, test, A, M)
     return errs.permute(3, 0, 1, 2).reshape(Y.shape[1], num_trials * (N - train_size), A)

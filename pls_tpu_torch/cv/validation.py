@@ -21,6 +21,7 @@ import torch
 from pls_tpu_torch.ops.stats import sst
 from pls_tpu_torch.ops.wilcoxon import wilcoxon
 from pls_tpu_torch.types import MSE, RESS, VALIDATION_OUTPUT, Residual
+from pls_tpu_torch.utils.profiling import span
 from pls_tpu_torch.utils.reporting import format_eigen, host
 
 
@@ -50,7 +51,8 @@ def _optimal_from_errors(errs: torch.Tensor, alpha: float) -> torch.Tensor:
 
 def optimal_num_components(residual: Residual, alpha: float = 0.1) -> torch.Tensor:
     """Per-Y optimal number of components, 1-based (pls.cpp:263-289)."""
-    return _optimal_from_errors(residual.errors, alpha)
+    with span("pls.cv.select"):
+        return _optimal_from_errors(residual.errors, alpha)
 
 
 def compare_models(

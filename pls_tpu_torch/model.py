@@ -37,6 +37,7 @@ from pls_tpu_torch.models.kernel_pls import fit as _fit
 from pls_tpu_torch.ops.stats import sst
 from pls_tpu_torch.types import METHOD, PLSFit, Residual
 from pls_tpu_torch.utils.gcc_rng import GccRng
+from pls_tpu_torch.utils.profiling import span
 from pls_tpu_torch.utils.reporting import format_eigen, format_eigen_complex, host
 
 
@@ -251,7 +252,8 @@ class PLSModel:
         N = self._X.shape[0]
         partitions = generator = key = None
         if isinstance(rng, GccRng):
-            partitions = rng.lso_partitions(N, num_trials)
+            with span("pls.lso.partitions"):
+                partitions = rng.lso_partitions(N, num_trials)
         elif isinstance(rng, torch.Generator):
             generator = rng
         else:

@@ -42,6 +42,7 @@ from pls_tpu_torch.ops.deflate import deflate_pass
 from pls_tpu_torch.ops.eigen import dominant_eigenvector
 from pls_tpu_torch.types import METHOD, PLSFit
 from pls_tpu_torch.utils import debug
+from pls_tpu_torch.utils.profiling import span
 
 KERNEL_METHODS = (METHOD.KERNEL_TYPE1, METHOD.KERNEL_TYPE2)
 # the precision modes whose component loop runs in float64
@@ -309,7 +310,7 @@ def _fit_kernel(
     batch = X.shape[:-2]
     K = X.shape[-1]
     M = Y.shape[-1]
-    with _prec_ctx(precision):
+    with span("pls.fit"), _prec_ctx(precision):
         Xa = X.to(acc)  # widened copy only for bf16 X
         XY = Xa.mT @ Y.to(X.dtype).to(acc)
         XX = None if type1 else Xa.mT @ Xa
@@ -322,42 +323,43 @@ def _fit_kernel(
         Rb = torch.zeros_like(Pb)
         Ws, Qs, Ts = [], [], []
         for a in range(A):
-            if M == 1:
-                w = XY[..., 0]
-            else:
-                q0 = dominant_eigenvector(XY.mT @ XY, power_iters)
-                w = (XY @ q0[..., None])[..., 0]
-            w = w / torch.sqrt(w[..., None, :] @ w[..., :, None])[..., 0]
-            # Gram-Schmidt against the previous components over the whole
-            # zero-initialised buffers, as the JAX package does.  Slicing to
-            # the first a rows changes the sums' order enough to move one
-            # borderline 6th digit of nir's f64 state dump off the reference
-            r = w - (Rb.mT @ (Pb @ w[..., None]))[..., 0]
-            if type1:
-                t, tt, p = _t_tt_p(X, Xa, r)
-                if reduce is not None:
-                    stats = reduce(torch.cat([p, tt[..., None]], -1))
-                    p, tt = stats[..., :K], stats[..., K]
-                Ts.append(t)
-            else:
-                p = (XX @ r[..., None])[..., 0]
-                tt = (r * p).sum(-1)
-            p = p / tt[..., None]
-            q = (XY.mT @ r[..., None])[..., 0] / tt[..., None]
-            Pb[..., a, :] = p
-            Rb[..., a, :] = r
-            Ws.append(w)
-            Qs.append(q)
-            XY = XY - p[..., :, None] * q[..., None, :] * tt[..., None, None]
-    T = torch.stack(Ts, -1) if type1 else X.new_zeros((*batch, 0, A), dtype=acc)
-    return PLSFit(
-        W=torch.stack(Ws, -1),
-        P=Pb.mT,
-        Q=torch.stack(Qs, -1),
-        R=Rb.mT,
-        T=T,
-        method=METHOD.KERNEL_TYPE1 if type1 else METHOD.KERNEL_TYPE2,
-    )
+            with span("pls.fit.component"):
+                if M == 1:
+                    w = XY[..., 0]
+                else:
+                    q0 = dominant_eigenvector(XY.mT @ XY, power_iters)
+                    w = (XY @ q0[..., None])[..., 0]
+                w = w / torch.sqrt(w[..., None, :] @ w[..., :, None])[..., 0]
+                # Gram-Schmidt against the previous components over the whole
+                # zero-initialised buffers, as the JAX package does.  Slicing to
+                # the first a rows changes the sums' order enough to move one
+                # borderline 6th digit of nir's f64 state dump off the reference
+                r = w - (Rb.mT @ (Pb @ w[..., None]))[..., 0]
+                if type1:
+                    t, tt, p = _t_tt_p(X, Xa, r)
+                    if reduce is not None:
+                        stats = reduce(torch.cat([p, tt[..., None]], -1))
+                        p, tt = stats[..., :K], stats[..., K]
+                    Ts.append(t)
+                else:
+                    p = (XX @ r[..., None])[..., 0]
+                    tt = (r * p).sum(-1)
+                p = p / tt[..., None]
+                q = (XY.mT @ r[..., None])[..., 0] / tt[..., None]
+                Pb[..., a, :] = p
+                Rb[..., a, :] = r
+                Ws.append(w)
+                Qs.append(q)
+                XY = XY - p[..., :, None] * q[..., None, :] * tt[..., None, None]
+        T = torch.stack(Ts, -1) if type1 else X.new_zeros((*batch, 0, A), dtype=acc)
+        return PLSFit(
+            W=torch.stack(Ws, -1),
+            P=Pb.mT,
+            Q=torch.stack(Qs, -1),
+            R=Rb.mT,
+            T=T,
+            method=METHOD.KERNEL_TYPE1 if type1 else METHOD.KERNEL_TYPE2,
+        )
 
 
 # ---------- fits from the statistics XᵀX / XᵀY ----------
@@ -369,31 +371,32 @@ def _kernel2_loop(matvec, XY: torch.Tensor, A: int, power_iters, precision) -> P
     (one (F, K)×(K, K) product against a shared XX)."""
     batch = XY.shape[:-2]
     K, M = XY.shape[-2:]
-    with _prec_ctx(precision):
+    with span("pls.fit"), _prec_ctx(precision):
         Pb = XY.new_zeros((*batch, A, K))
         Rb = torch.zeros_like(Pb)
         Ws, Qs = [], []
         for a in range(A):
-            if M == 1:
-                w = XY[..., 0]
-            else:
-                q0 = dominant_eigenvector(XY.mT @ XY, power_iters)
-                w = (XY @ q0[..., None])[..., 0]
-            w = w / torch.sqrt((w * w).sum(-1, keepdim=True))
-            r = w - (Rb.mT @ (Pb @ w[..., None]))[..., 0]
-            v = matvec(r)
-            tt = (r * v).sum(-1)
-            p = v / tt[..., None]
-            q = (XY.mT @ r[..., None])[..., 0] / tt[..., None]
-            Pb[..., a, :] = p
-            Rb[..., a, :] = r
-            Ws.append(w)
-            Qs.append(q)
-            XY = XY - p[..., :, None] * q[..., None, :] * tt[..., None, None]
-    return PLSFit(
-        W=torch.stack(Ws, -1), P=Pb.mT, Q=torch.stack(Qs, -1), R=Rb.mT,
-        T=XY.new_zeros((*batch, 0, A)), method=METHOD.KERNEL_TYPE2,
-    )
+            with span("pls.fit.component"):
+                if M == 1:
+                    w = XY[..., 0]
+                else:
+                    q0 = dominant_eigenvector(XY.mT @ XY, power_iters)
+                    w = (XY @ q0[..., None])[..., 0]
+                w = w / torch.sqrt((w * w).sum(-1, keepdim=True))
+                r = w - (Rb.mT @ (Pb @ w[..., None]))[..., 0]
+                v = matvec(r)
+                tt = (r * v).sum(-1)
+                p = v / tt[..., None]
+                q = (XY.mT @ r[..., None])[..., 0] / tt[..., None]
+                Pb[..., a, :] = p
+                Rb[..., a, :] = r
+                Ws.append(w)
+                Qs.append(q)
+                XY = XY - p[..., :, None] * q[..., None, :] * tt[..., None, None]
+        return PLSFit(
+            W=torch.stack(Ws, -1), P=Pb.mT, Q=torch.stack(Qs, -1), R=Rb.mT,
+            T=XY.new_zeros((*batch, 0, A)), method=METHOD.KERNEL_TYPE2,
+        )
 
 
 def _gram_matvec(XX: torch.Tensor):

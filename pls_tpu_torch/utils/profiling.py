@@ -8,7 +8,10 @@ Counterpart of `pls_tpu/utils/profiling.py`:
 - `measure(fn, *args)`: seconds per call after warm-up: CUDA events
   around the calls on the card, `time.perf_counter` on the CPU;
 - `roofline_report(seconds, bytes, flops)`: achieved GB/s and TFLOP/s,
-  and their shares of the card's published peaks.
+  and their shares of the card's published peaks;
+- `span(name)`: a range of the program's own (`SPANS`) in whatever
+  torch.profiler trace is being collected, on the clock of its device
+  events; with no profiler collecting, a shared no-op context.
 
 `_PEAKS` holds only the published figures of the card the port is
 measured on (NVIDIA H100 SXM5 80GB HBM3 at 700 W: 3.35 TB/s, 67 TFLOP/s
@@ -30,6 +33,41 @@ import torch
 _PEAKS = {
     "H100 80GB HBM3": (3350.0, 67.0),
 }
+
+# Every name the program gives `span`.  A span's parent is the span that
+# encloses it in the trace; the caller's own range (a benchmark's job, an
+# operator's request) encloses the outermost.
+SPANS = (
+    "pls.pipeline",  # config.run_pipeline: one whole calibration
+    "pls.pipeline.read",  # both CSV reads and X's preprocessing chain
+    "pls.pipeline.zscore",  # the column z-scores of X and Y
+    "pls.pipeline.fit",  # the main model's construction (its fit)
+    "pls.pipeline.report",  # the state and explained-variance prints and the report dict
+    "pls.pipeline.loo",  # model.cv_LOO
+    "pls.pipeline.lso",  # model.cv_LSO, its partitions included
+    "pls.pipeline.kfold",  # model.cv_KFOLD
+    "pls.pipeline.select",  # one CV's RMSE table, validation and Wilcoxon choice
+    "pls.lso.partitions",  # drawing the LSO trials' partitions (GccRng, JAX key or generator)
+    "pls.cv.assign",  # k-fold labels into padded row blocks, copied to the device
+    "pls.cv.global_stats",  # XᵀX and XᵀY for the downdated CVs (and X's bf16 cast)
+    "pls.cv.fold_batch",  # one batch of CV folds: masks, refits, residuals
+    "pls.cv.select",  # the Wilcoxon choice of component count from CV errors
+    "pls.fit",  # one kernel-PLS fit, or one batch of fold fits, XᵀY included
+    "pls.fit.component",  # one component of that fit's loop
+    "pls.fit.eigh",  # the dominant eigenvector of XYᵀXY (eigh or power iterations)
+)
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`torch.profiler.record_function(name)` while a torch profiler is
+    collecting, so the range lands in its trace beside the device's
+    events; otherwise one shared `contextlib.nullcontext()`, which
+    allocates nothing and calls no operator.  `name` is one of `SPANS`."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
