@@ -15,8 +15,13 @@
 //                                          a reader whose one background
 //                                          thread parses chunk n+1 while the
 //                                          caller uses chunk n
-//   pio_gcc_shuffle_trace, pio_mt19937_raw real libstdc++ draws, the ground
-//                                          truth of utils/gcc_rng.py
+//   pio_mt_new / _clone / _free / _raw / _shuffle / _lso_partitions
+//                                          one live std::mt19937 and its
+//                                          std::shuffle draws: the engine
+//                                          of utils/gcc_rng.GccRng
+//   pio_gcc_shuffle_trace, pio_mt19937_raw real libstdc++ draws from a fresh
+//                                          engine, the ground truth of the
+//                                          tests
 //
 // Parsing is strtod's, field by field, as the JAX extension's parse_line:
 // a trailing '\r' is stripped, blanks after a field are skipped (but for a
@@ -229,6 +234,17 @@ void chunk_worker(ChunkState *st) {
     }
 }
 
+// reps × n: row r is the index vector 0..n-1 after replicate r's
+// std::shuffle on rng (the vector is not reset between replicates).
+void shuffle_rows(std::mt19937 &rng, long n, long reps, int64_t *out) {
+    std::vector<int64_t> v(n);
+    std::iota(v.begin(), v.end(), 0);
+    for (long r = 0; r < reps; r++) {
+        std::shuffle(v.begin(), v.end(), rng);
+        std::copy(v.begin(), v.end(), out + r * n);
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -348,22 +364,41 @@ void pio_chunk_close(void *handle) {
 // Chunk readers opened and not yet closed (their threads not yet joined).
 long pio_live_readers() { return g_live_readers.load(); }
 
-// reps × n: the index vector 0..n-1 shuffled by std::shuffle on one live
-// std::mt19937, after each replicate (the vector is not reset).
+// reps × n: the index vector 0..n-1 shuffled by std::shuffle on a fresh
+// std::mt19937(seed), after each replicate (the vector is not reset).
 void pio_gcc_shuffle_trace(unsigned long seed, long n, long reps, int64_t *out) {
     std::mt19937 rng(static_cast<std::mt19937::result_type>(seed));
-    std::vector<int64_t> v(n);
-    std::iota(v.begin(), v.end(), 0);
-    for (long r = 0; r < reps; r++) {
-        std::shuffle(v.begin(), v.end(), rng);
-        std::copy(v.begin(), v.end(), out + r * n);
-    }
+    shuffle_rows(rng, n, reps, out);
 }
 
 // The first n raw draws of std::mt19937(seed).
 void pio_mt19937_raw(unsigned long seed, long n, uint32_t *out) {
     std::mt19937 rng(static_cast<std::mt19937::result_type>(seed));
     for (long i = 0; i < n; i++) out[i] = static_cast<uint32_t>(rng());
+}
+
+// A live std::mt19937 behind a handle, so that its state carries across
+// calls as the reference's std::mt19937& does.  pio_mt_clone copies the
+// engine (a fork of the stream); each handle is freed once by pio_mt_free.
+void *pio_mt_new(unsigned long seed) {
+    return new std::mt19937(static_cast<std::mt19937::result_type>(seed));
+}
+
+void *pio_mt_clone(const void *h) { return new std::mt19937(*static_cast<const std::mt19937 *>(h)); }
+
+void pio_mt_free(void *h) { delete static_cast<std::mt19937 *>(h); }
+
+uint32_t pio_mt_raw(void *h) { return static_cast<uint32_t>((*static_cast<std::mt19937 *>(h))()); }
+
+// std::shuffle of v[0..n) in place on the live engine.
+void pio_mt_shuffle(void *h, int64_t *v, long n) {
+    std::shuffle(v, v + n, *static_cast<std::mt19937 *>(h));
+}
+
+// reps × n, as pio_gcc_shuffle_trace but on the live engine: the LSO
+// trials' partitions (rand_nchoosek, reference pls.cpp:218-227).
+void pio_mt_lso_partitions(void *h, long n, long reps, int64_t *out) {
+    shuffle_rows(*static_cast<std::mt19937 *>(h), n, reps, out);
 }
 
 }  // extern "C"

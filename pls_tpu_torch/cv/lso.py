@@ -5,8 +5,8 @@ pls.cpp:512-549).  The trials are a leading batch axis over a
 (num_trials, N) partition matrix: row t is a permutation of 0..N−1 whose
 first `train_size` entries are the training rows (the reference's
 `rand_nchoosek` layout, pls.cpp:218-227).  Partitions come from
-`utils.gcc_rng.GccRng`, which replays the reference CLI's std::mt19937 +
-std::shuffle bit for bit, from a JAX key or int seed (`utils.jax_prng`,
+`utils.gcc_rng.GccRng`, which draws the reference CLI's std::mt19937 +
+std::shuffle stream with libstdc++ itself, from a JAX key or int seed (`utils.jax_prng`,
 the JAX package's `jax.random` partitions bit for bit), or from a
 `torch.Generator`.
 

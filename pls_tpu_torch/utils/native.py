@@ -13,8 +13,12 @@ messages:
   while the caller uses chunk n; an error of the thread is raised by the
   next `next()`, after the chunk already parsed;
 - `gcc_shuffle_trace(seed, n, reps)` and `mt19937_raw(seed, n)`: real
-  libstdc++ std::shuffle / std::mt19937 draws, the ground truth that
-  `utils/gcc_rng.py`'s emulator is held to.
+  libstdc++ std::shuffle / std::mt19937 draws from a fresh engine, the
+  ground truth the tests hold `utils/gcc_rng.py` to.
+
+Beyond them, the engine handle `pio_mt_new/_clone/_free/_raw/_shuffle/
+_lso_partitions`: one live std::mt19937 whose state carries across calls,
+which `utils/gcc_rng.GccRng` owns and draws the LSO partitions from.
 
 One deliberate difference: a tab or space separator.  The JAX extension
 skips blanks after a field before it looks for the separator, so it
@@ -59,6 +63,12 @@ def library() -> ctypes.CDLL:
         ("pio_live_readers", lp, []),
         ("pio_gcc_shuffle_trace", None, [ctypes.c_ulong, lp, lp, vp]),
         ("pio_mt19937_raw", None, [ctypes.c_ulong, lp, vp]),
+        ("pio_mt_new", vp, [ctypes.c_ulong]),
+        ("pio_mt_clone", vp, [vp]),
+        ("pio_mt_free", None, [vp]),
+        ("pio_mt_raw", ctypes.c_uint32, [vp]),
+        ("pio_mt_shuffle", None, [vp, vp, lp]),
+        ("pio_mt_lso_partitions", None, [vp, lp, lp, vp]),
     ):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = restype, argtypes

@@ -21,8 +21,11 @@ against the JAX package's `pls_tpu._native` (built by tests/conftest.py).
   end with every reader's thread joined (`native.live_readers`), each
   within its own time limit.
 - No fallback: a missing or failing compiler makes the loader raise.
-- The RNG traces equal tests/golden's libstdc++ draws and pls_tpu._native's,
-  and the port's emulator equals its own trace.
+- The RNG traces equal tests/golden's libstdc++ draws and pls_tpu._native's;
+  `GccRng`'s native engine equals its own trace, the plain twin
+  (MT19937 + gcc_shuffle) and the JAX package's GccRng, carries its state
+  across interleaved calls as the twin does, forks under copy, and serves
+  the LSO of `cv_LSO` and of the pipeline (`native_draws`).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import pytest
 import pls_tpu.utils.io as jio
 from pls_tpu import _native as jax_native
 from pls_tpu.models.streaming import csv_chunks as jax_csv_chunks
+from pls_tpu.utils.gcc_rng import GccRng as JaxGccRng
 from pls_tpu_torch.models.streaming import csv_chunks
 from pls_tpu_torch.utils import cxx, gcc_rng, native
 from pls_tpu_torch.utils import io as tio
@@ -385,14 +389,94 @@ def test_shuffle_trace_equals_golden(golden, n):
     np.testing.assert_array_equal(gcc_rng.gcc_shuffle_trace(5489, n, gold.shape[0]), gold)
 
 
-@pytest.mark.parametrize("seed,n,reps", [(5489, 60, 600), (7, 13, 50), (0, 1, 3), (2**32 + 5, 10, 4),
-                                         (123, 65537, 2)])
+def _twin_partitions(mt, n, reps):
+    """GccRng.lso_partitions on the plain twin (MT19937 + gcc_shuffle)."""
+    v, out = list(range(n)), np.empty((reps, n), np.int64)
+    for r in range(reps):
+        gcc_rng.gcc_shuffle(v, mt)
+        out[r] = v
+    return out
+
+
+@pytest.mark.parametrize("seed,n,reps", [(5489, 60, 600), (7, 13, 50), (3, 10, 4), (0, 1, 3),
+                                         (2**32 + 5, 10, 4), (123, 65537, 2)])
 def test_traces_equal_jax_native_and_the_emulator(seed, n, reps):
     trace = gcc_rng.gcc_shuffle_trace(seed, n, reps)
     np.testing.assert_array_equal(trace, jax_native.gcc_shuffle_trace(seed, n, reps))
     np.testing.assert_array_equal(gcc_rng.mt19937_raw(seed, 1000),
                                   jax_native.mt19937_raw(seed, 1000))
-    np.testing.assert_array_equal(gcc_rng.GccRng(seed).lso_partitions(n, reps), trace)
+    parts = gcc_rng.GccRng(seed).lso_partitions(n, reps)
+    assert parts.dtype == np.int64 and parts.shape == (reps, n)
+    np.testing.assert_array_equal(parts, trace)
+    np.testing.assert_array_equal(parts, _twin_partitions(gcc_rng.MT19937(seed), n, reps))
+    np.testing.assert_array_equal(parts, JaxGccRng(seed).lso_partitions(n, reps))
+
+
+def test_engine_state_carries_as_the_twin():
+    """One GccRng through raw, shuffle, partitions and raw again draws the
+    twin's stream: the native engine's state carries across calls."""
+    rng, mt = gcc_rng.GccRng(11), gcc_rng.MT19937(11)
+    assert rng.raw() == mt()
+    words, twin_words = list("abcdefghijklm"), list("abcdefghijklm")
+    rng.shuffle(words)
+    gcc_rng.gcc_shuffle(twin_words, mt)
+    assert words == twin_words != list("abcdefghijklm")
+    for _ in range(2):
+        np.testing.assert_array_equal(rng.lso_partitions(10, 30), _twin_partitions(mt, 10, 30))
+    assert rng.raw() == mt()
+
+
+def test_engine_copies_fork_the_stream():
+    import copy
+    import pickle
+
+    rng = gcc_rng.GccRng(2024)
+    rng.lso_partitions(17, 5)
+    forks = [copy.deepcopy(rng), copy.copy(rng)]
+    first = rng.lso_partitions(17, 40)
+    for fork in forks:
+        np.testing.assert_array_equal(fork.lso_partitions(17, 40), first)
+    # independent: drawing from one leaves the others where they were
+    forks[0].raw()
+    assert rng.raw() == forks[1].raw() != forks[0].raw()
+    del rng, forks
+    gc.collect()
+    with pytest.raises(TypeError, match="cannot be pickled"):
+        pickle.dumps(gcc_rng.GccRng())
+
+
+@pytest.mark.parametrize("n,reps", [(0, 4), (1, 4), (9, 0)])
+def test_engine_edge_sizes_as_the_jax_package(n, reps):
+    rng, jrng = gcc_rng.GccRng(5), JaxGccRng(5)
+    parts = rng.lso_partitions(n, reps)
+    assert parts.dtype == np.int64 and parts.shape == (reps, n)
+    np.testing.assert_array_equal(parts, jrng.lso_partitions(n, reps))
+    assert rng.raw() == jrng.raw()  # no draw taken
+
+
+@pytest.mark.parametrize("route", ["cv_LSO", "pipeline_gcc", "pipeline_jax"])
+def test_native_engine_serves_the_lso(route):
+    """`native_draws` counts the partitions the engine drew: one set for
+    cv_LSO with a GccRng and for the pipeline's default route, none for
+    the JAX-key route."""
+    import io
+
+    import torch
+
+    from pls_tpu_torch import GccRng, PLSModel
+    from pls_tpu_torch.config import PLSRunConfig, run_pipeline
+    from pls_tpu_torch.types import KERNEL_TYPE1
+
+    x_file, y_file = (str(REPO / "pls_tpu" / "data" / f) for f in ("toyX.csv", "toyY.csv"))
+    before = dict(gcc_rng.native_draws)
+    if route == "cv_LSO":
+        X, Y = (torch.from_numpy(tio.read_matrix_file(f)) for f in (x_file, y_file))
+        PLSModel(X, Y, KERNEL_TYPE1, 2).cv_LSO(0.3, 20, GccRng())
+    else:
+        cfg = PLSRunConfig(x_file, y_file, 2, cv=("lso",), rng=route.removeprefix("pipeline_"))
+        run_pipeline(cfg, file=io.StringIO(), device=torch.device("cpu"))
+    drew = route != "pipeline_jax"
+    assert gcc_rng.native_draws == {**before, "lso_partitions": before["lso_partitions"] + drew}
 
 
 def test_trace_arguments_checked():
