@@ -17,6 +17,17 @@ device; `keep(answer)` keeps a seeded sample of the answers;
 answers with the reference, one dict of readings per answer; `traced` is
 the number of jobs in the traced slice, and `work` the (bytes, flops) of
 one job from its shapes, or None.
+
+A cell joins by new files and appends to BENCHMARK.json's lists alone;
+no file the benchmark has changes.  A new configuration brings
+`configs/<name>.json` (and its data under `data/` where it reads files)
+and its CPU cut for the tests, `tests/cuts/<name>.json`; each cell brings
+`limits/<cell>.json` and, where new, `traffic/<mix>.json` and
+`jobs/<job>.py`; each new metric brings `metrics/<metric>.py`.  In
+BENCHMARK.json the configuration is appended to `configs`, the cell to
+`workloads`, and the cell's name to the `workloads` list of every metric
+it reports.  `portbench/tests/test_portbench_add_cell.py` adds one so, on a
+copy of the checkout.
 """
 
 from __future__ import annotations
@@ -72,8 +83,8 @@ class Cell:
     per_layer: list[dict]
 
     @classmethod
-    def load(cls, workload: str, bench_file: Path = ROOT / "BENCHMARK.json") -> "Cell":
-        bench = json.loads(bench_file.read_text())
+    def load(cls, workload: str, bench_file: Path | None = None) -> "Cell":
+        bench = json.loads((bench_file or ROOT / "BENCHMARK.json").read_text())
         cells = {w["name"]: w for w in bench["workloads"]}
         if workload not in cells:
             raise SystemExit(f"unknown workload {workload!r}; the cells are {sorted(cells)}")

@@ -1,7 +1,8 @@
 """lso_partitions_ms (ms, device trace): the host's self time in the span
 `pls.lso.partitions` a calibration (drawing the LSO trials' partitions:
-`GccRng.lso_partitions`, the reference's std::shuffle replayed in Python),
-over the traced slice's calibrations.  Layer: CV folds; moves calib_ms."""
+`GccRng.lso_partitions`, the reference's std::shuffle drawn natively by
+a live libstdc++ std::mt19937 in `csrc/native_io.cpp`), over the traced
+slice's calibrations.  Layer: CV folds; moves calib_ms."""
 
 from portbench.spans import self_s
 

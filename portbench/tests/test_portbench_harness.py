@@ -4,7 +4,6 @@ at a tiny size on the CPU."""
 from __future__ import annotations
 
 import json
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -12,57 +11,44 @@ from pathlib import Path
 import pytest
 
 from portbench import harness
-from portbench.tests import tiny
+from portbench.tests import contract, tiny
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
-NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
-UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
 def test_names_and_units_use_the_allowed_characters():
-    names = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
-    names += [c["name"] for c in BENCH["configs"]] + CELLS
-    names += [w["config"] for w in BENCH["workloads"]] + [w["traffic"] for w in BENCH["workloads"]]
-    names += [k for c in BENCH["configs"] for k in c["reduced"]]
-    assert all(NAME.fullmatch(n) for n in names), names
-    assert len(set(names[: len(BENCH["end_to_end"]) + len(BENCH["per_layer"])])) == len(
-        BENCH["end_to_end"]) + len(BENCH["per_layer"])
-    assert all(UNIT.fullmatch(m["unit"]) for m in BENCH["end_to_end"] + BENCH["per_layer"])
-    assert all(m["better"] in ("lower", "higher") for m in BENCH["end_to_end"] + BENCH["per_layer"])
-    text = [c["why"] for c in BENCH["configs"] + BENCH["workloads"]]
-    text += [c["source"] for c in BENCH["configs"]] + [m["layer"] for m in BENCH["per_layer"]]
-    assert all(0 < len(s) <= 200 and "\n" not in s and "\t" not in s for s in text)
-    assert (ROOT / "BENCHMARK.json").stat().st_size <= 64 * 1024
+    contract.names_and_units(BENCH, ROOT)
 
 
 def test_every_entry_has_the_contract_keys():
-    assert set(BENCH) == {"command", "paths", "run_seconds", "configs", "workloads",
-                          "end_to_end", "per_layer"}
-    assert all(set(c) == {"name", "source", "file", "reduced", "why"} for c in BENCH["configs"])
-    assert all(set(w) == {"name", "config", "traffic", "chips", "why"} for w in BENCH["workloads"])
-    for m in BENCH["end_to_end"]:
-        assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
-        assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
-    for m in BENCH["per_layer"]:
-        assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer", "moves"}
-    assert any(m["name"] == "setup_s" and "workloads" not in m for m in BENCH["end_to_end"])
-    assert 1 <= BENCH["run_seconds"] <= 51 and all(w["chips"] == 1 for w in BENCH["workloads"])
+    contract.keys(BENCH)
 
 
 def test_every_file_resolves_by_name_and_every_configuration_has_a_cell():
-    for w in CELLS:
-        c = harness.Cell.load(w)
-        assert (harness.BENCH / "jobs" / f"{c.mix['job']}.py").exists()
-        for m in c.end_to_end + c.per_layer:
-            assert (harness.BENCH / "metrics" / f"{m['name']}.py").exists()
-        assert any(m["name"] != "setup_s" for m in c.end_to_end) and c.per_layer
-        assert {m["moves"] for m in c.per_layer} <= {m["name"] for m in c.end_to_end}
-    for c in BENCH["configs"]:
-        assert (ROOT / c["file"]).exists() and c["file"].startswith("portbench/")
-        assert any(w["config"] == c["name"] for w in BENCH["workloads"])
-    assert len({c["file"] for c in BENCH["configs"]}) == len(BENCH["configs"])
+    contract.files(BENCH, ROOT)
+
+
+def _with_chips(*chips: int) -> dict:
+    """BENCHMARK.json with as many cells as `chips`, copies of the first,
+    each on its count of chips."""
+    first = BENCH["workloads"][0]
+    cells = [{**first, "name": f"cell{i}", "chips": n} for i, n in enumerate(chips)]
+    return {**BENCH, "workloads": cells}
+
+
+@pytest.mark.parametrize("chips", [(1,), (4,), (4, 1, 1), (4, 1, 1, 1), (4, 4, 1, 1, 1, 1, 1, 1),
+                                   (1,) * 23 + (4,)], ids=str)
+def test_a_cell_may_take_one_chip_or_four(chips):
+    contract.keys(_with_chips(*chips))
+
+
+@pytest.mark.parametrize("chips", [(2,), (0,), (8,), (1.0,), (4, 4), (4, 4, 1, 1, 1, 1, 1),
+                                   (4, 4, 4, 1, 1, 1, 1, 1, 1, 1, 1)], ids=str)
+def test_more_four_chip_cells_than_a_quarter_or_other_counts_are_refused(chips):
+    with pytest.raises(AssertionError):
+        contract.keys(_with_chips(*chips))
 
 
 def test_nothing_the_harness_runs_imports_jax_or_the_jax_package(tmp_path):
