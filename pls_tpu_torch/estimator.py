@@ -24,10 +24,12 @@ import numpy as np
 import torch
 
 from pls_tpu_torch.config import as_data
+from pls_tpu_torch.models import predict as _predict
 from pls_tpu_torch.models.kernel_pls import fit as _fit
-from pls_tpu_torch.models.predict import _promote, coefficients, vip
+from pls_tpu_torch.models.predict import _promote
 from pls_tpu_torch.preprocess import ZScorer
 from pls_tpu_torch.types import KERNEL_TYPE1, METHOD
+from pls_tpu_torch.utils.profiling import span
 
 
 def _sklearn_tags(kind: str):
@@ -82,9 +84,11 @@ class _EstimatorBase:
         if self.scale:
             # weighted moments keep "integer weights == repeated rows" true
             # through the internal z-scoring
-            self._x_scaler = ZScorer.fit(X, sample_weight)
+            with span("pls.estimator.scale"):
+                self._x_scaler = ZScorer.fit(X, sample_weight)
+                Xz = self._x_scaler.transform(X)
             self._y_scaler = ZScorer.fit(y, sample_weight)
-            return self._x_scaler.transform(X), self._y_scaler.transform(y)
+            return Xz, self._y_scaler.transform(y)
         self._x_scaler = self._y_scaler = None
         return X, y
 
@@ -171,7 +175,7 @@ class PLSRegressor(_EstimatorBase):
         self._fit = _fit(Xz, yz, self.n_components, self.method, sample_weight=sw,
                          power_iters=self.power_iters, precision=self.precision,
                          x_storage=self.x_storage)
-        self._set_coef(coefficients(self._fit))
+        self._set_coef(_predict.coefficients(self._fit))
         return self
 
     def predict(self, X) -> np.ndarray:
@@ -185,7 +189,7 @@ class PLSRegressor(_EstimatorBase):
     def vip_(self) -> np.ndarray:
         """Variable importance in projection (fits that store their scores;
         for kernel type 2 call `vip(fit, X)`)."""
-        return _np(vip(self._fit))
+        return _np(_predict.vip(self._fit))
 
     def build_monitor(self, X, alpha: float = 0.05):
         """The T²/SPE admission gate (models/diagnostics.py) from raw-unit
@@ -257,7 +261,7 @@ class RobustPLSRegressor(_EstimatorBase):
         self._fit, w = fit_robust(Xz, yz, self.n_components, self.method, loss=self.loss,
                                   c=self.c, n_irls=self.n_irls)
         self.sample_weight_ = _np(w)
-        self._set_coef(coefficients(self._fit))
+        self._set_coef(_predict.coefficients(self._fit))
         return self
 
     def predict(self, X) -> np.ndarray:
@@ -291,7 +295,7 @@ class SPLSRegressor(_EstimatorBase):
         keep_x = Xz.shape[1] if self.keep_x is None else self.keep_x
         self._fit = fit_spls(Xz, yz, self.n_components, keep_x, self.keep_y,
                              n_iter=self.n_iter, precision=self.precision)
-        self._set_coef(coefficients(self._fit))
+        self._set_coef(_predict.coefficients(self._fit))
         self.selected_ = _np(selected_variables(self._fit))
         return self
 
@@ -303,7 +307,7 @@ class SPLSRegressor(_EstimatorBase):
 
     @property
     def vip_(self) -> np.ndarray:
-        return _np(vip(self._fit))
+        return _np(_predict.vip(self._fit))
 
 
 class OPLSRegressor(_EstimatorBase):

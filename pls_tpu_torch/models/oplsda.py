@@ -21,9 +21,10 @@ import numpy as np
 import torch
 
 from pls_tpu_torch.estimator import _EstimatorBase, _sklearn_tags
+from pls_tpu_torch.models import predict as _predict
 from pls_tpu_torch.models.opls import OPLSFit, correct, fit_opls
 from pls_tpu_torch.models.plsda import _with_priors, one_hot
-from pls_tpu_torch.models.predict import _promote, coefficients
+from pls_tpu_torch.models.predict import _promote
 from pls_tpu_torch.preprocess import ZScorer
 from pls_tpu_torch.types import KERNEL_TYPE1, METHOD
 
@@ -48,7 +49,7 @@ def fit_oplsda(
 def decision_values(ofit: OPLSFit, Xn: torch.Tensor, comp: int | None = None) -> torch.Tensor:
     """Predicted (centred) indicator scores after the orthogonal filter."""
     Xf, _ = correct(ofit, Xn)
-    Xf, B = _promote(Xf, coefficients(ofit.pls, comp))
+    Xf, B = _promote(Xf, _predict.coefficients(ofit.pls, comp))
     return Xf @ B
 
 

@@ -19,10 +19,12 @@ import numpy as np
 import torch
 
 from pls_tpu_torch.estimator import _EstimatorBase, _sklearn_tags
+from pls_tpu_torch.models import predict as _predict
 from pls_tpu_torch.models.kernel_pls import fit as _fit
-from pls_tpu_torch.models.predict import _promote, coefficients
+from pls_tpu_torch.models.predict import _promote
 from pls_tpu_torch.preprocess import ZScorer
 from pls_tpu_torch.types import KERNEL_TYPE1, METHOD, PLSFit
+from pls_tpu_torch.utils.profiling import span
 
 
 def one_hot(labels: torch.Tensor, n_classes: int, dtype=torch.float32) -> torch.Tensor:
@@ -41,7 +43,7 @@ def fit_plsda(
 
 def decision_values(f: PLSFit, Xn: torch.Tensor, comp: int | None = None) -> torch.Tensor:
     """Predicted (centred) indicator scores, (N, n_classes)."""
-    Xn, B = _promote(Xn, coefficients(f, comp))
+    Xn, B = _promote(Xn, _predict.coefficients(f, comp))
     return Xn @ B
 
 
@@ -87,23 +89,26 @@ class PLSDAClassifier(_EstimatorBase):
         return _sklearn_tags("classifier")
 
     def fit(self, X, y) -> "PLSDAClassifier":
-        X = self._data(X)
-        self.classes_, idx = np.unique(np.asarray(y), return_inverse=True)
-        n_classes = len(self.classes_)
-        if n_classes < 2:
-            raise ValueError("need at least 2 classes")
-        self._x_scaler = ZScorer.fit(X) if self.scale else None
-        Xz = self._scale_x(X)
-        self._priors = torch.as_tensor(np.bincount(idx, minlength=n_classes) / len(idx),
-                                       dtype=Xz.dtype, device=Xz.device)
-        self._fit = fit_plsda(Xz, torch.as_tensor(idx, device=Xz.device), n_classes,
-                              self.n_components, self.method, power_iters=self.power_iters,
-                              precision=self.precision)
+        with span("pls.plsda.fit"):
+            X = self._data(X)
+            self.classes_, idx = np.unique(np.asarray(y), return_inverse=True)
+            n_classes = len(self.classes_)
+            if n_classes < 2:
+                raise ValueError("need at least 2 classes")
+            with span("pls.estimator.scale"):
+                self._x_scaler = ZScorer.fit(X) if self.scale else None
+                Xz = self._scale_x(X)
+            self._priors = torch.as_tensor(np.bincount(idx, minlength=n_classes) / len(idx),
+                                           dtype=Xz.dtype, device=Xz.device)
+            self._fit = fit_plsda(Xz, torch.as_tensor(idx, device=Xz.device), n_classes,
+                                  self.n_components, self.method, power_iters=self.power_iters,
+                                  precision=self.precision)
         return self
 
     def _decision(self, X) -> torch.Tensor:
         # the priors added back: B maps centred X to centred indicators
-        return decision_values(self._fit, self._scale_x(X)) + self._priors[None, :]
+        with span("pls.plsda.decision"):
+            return decision_values(self._fit, self._scale_x(X)) + self._priors[None, :]
 
     def decision_function(self, X) -> np.ndarray:
         return self._decision(X).cpu().numpy()

@@ -55,6 +55,9 @@ SPANS = (
     "pls.fit",  # one kernel-PLS fit, or one batch of fold fits, XᵀY included
     "pls.fit.component",  # one component of that fit's loop
     "pls.fit.eigh",  # the dominant eigenvector of XYᵀXY (eigh or power iterations)
+    "pls.plsda.fit",  # PLSDAClassifier.fit: labels, priors, indicators, scaling and the fit
+    "pls.plsda.decision",  # PLSDAClassifier's decision values of new data
+    "pls.estimator.scale",  # an estimator's internal z-scoring of X (ZScorer.fit, transform)
 )
 
 _NO_SPAN = contextlib.nullcontext()

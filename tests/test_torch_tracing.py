@@ -9,6 +9,10 @@ the exported Chrome trace's `user_annotation` ranges are read back.
   fold batch for each CV;
 - `cv_kfold_downdate` at k = 10: the statistics once and two fold batches
   (8 folds and 2);
+- `PLSDAClassifier.fit` then `decision_function`: one `pls.plsda.fit`
+  holding one `pls.estimator.scale` and one `pls.fit` with a
+  `pls.fit.component` a component, then one `pls.plsda.decision`; the
+  traced classifier equals an untraced one bit for bit;
 - every name emitted, and every name the package's source gives `span`,
   is in `SPANS`;
 - with no profiler collecting, a fit calls no `record_function`, and its
@@ -30,6 +34,7 @@ from pls_tpu_torch import cli
 from pls_tpu_torch.config import PLSRunConfig, run_pipeline
 from pls_tpu_torch.cv.kfold import cv_kfold_downdate
 from pls_tpu_torch.models.kernel_pls import fit
+from pls_tpu_torch.models.plsda import PLSDAClassifier
 from pls_tpu_torch.utils import profiling
 
 PKG = Path(profiling.__file__).resolve().parents[1]
@@ -108,6 +113,31 @@ def test_kfold_from_the_statistics_gives_one_stats_span_and_two_batches(tmp_path
     fits = _named(spans, "pls.fit")
     assert [sum(_inside(f, b) for f in fits) for b in batches] == [1, 1]
     assert {s[0] for s in spans} <= set(profiling.SPANS)
+
+
+def test_a_plsda_fit_and_its_decision_give_their_spans(tmp_path):
+    X, _ = _data(n=60, k=12, seed=3)
+    labels = (torch.arange(60) % 3).numpy()
+
+    def run():
+        clf = PLSDAClassifier(n_components=4, device="cpu").fit(X, labels)
+        return clf, clf.decision_function(X[:7])
+
+    plain, plain_d = run()
+    (traced, traced_d), spans = _traced(run, tmp_path)
+    (whole,) = _named(spans, "pls.plsda.fit")
+    (scale,) = _named(spans, "pls.estimator.scale")
+    (fitted,) = _named(spans, "pls.fit")
+    comps = _named(spans, "pls.fit.component")
+    (decision,) = _named(spans, "pls.plsda.decision")
+    assert _inside(scale, whole) and _inside(fitted, whole) and scale[2] <= fitted[1]
+    assert len(comps) == 4 and all(_inside(c, fitted) for c in comps)
+    assert decision[1] >= whole[2]
+    assert {"pls.plsda.fit", "pls.plsda.decision", "pls.estimator.scale"} <= set(profiling.SPANS)
+    assert {s[0] for s in spans} <= set(profiling.SPANS)
+    assert (traced_d == plain_d).all()
+    for name in ("W", "P", "Q", "R", "T"):
+        assert torch.equal(getattr(plain._fit, name), getattr(traced._fit, name)), name
 
 
 def test_spans_lists_exactly_the_names_the_package_gives_span():
