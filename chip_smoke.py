@@ -4,10 +4,11 @@
     python3 chip_smoke.py [--seed 0]
 
 Phases, each of which fails the run:
-  1. device: the card, torch/CUDA versions, TF32 off; build the two CUDA
-     sources, csrc/deflate.cu (K1/K2) and csrc/deflate_variants.cu
-     (K3-K5), with one nvcc each started together; print their ptxas
-     register and spill lines and the build time;
+  1. device: the card, torch/CUDA versions, TF32 off; build the three
+     CUDA sources, csrc/deflate.cu (K1/K2), csrc/deflate_variants.cu
+     (K3-K5) and csrc/eigen.cu (E1, the M×M dominant eigenvector), with
+     one nvcc each started together; print their ptxas register and
+     spill lines and the build time;
   2. kernel vs plain: the f32 (K1) and bf16 (K2) kernels against
      `deflate_pass_plain` on the same inputs and against f64 truth on the
      card, at every shape the main path gives them (toy 10×15, nir 60×401,
@@ -37,16 +38,27 @@ Phases, each of which fails the run:
      against the plain second product on the kernel's own t (and at
      HIGH against the whole plain chain), and within 10× the plain
      emulation's own error against f64; at DEFAULT a control, p with t
-     left unrounded, must fall outside 1e-5;
+     left unrounded, must fall outside 1e-5; then E1
+     (`ops.eigen.jacobi_dominant_cuda`) on random PSD C made on the card
+     at (B, M, M) = (1, 10, 10), a fit's component, (8, 10, 10), a fold
+     batch's, and (600, 10, 10), in float32 and float64: bit-equal to
+     its twin `jacobi_dominant_plain`, two launches bit-identical, and
+     within 1e-12 (float64 C) or 1e-6 (float32 C) of float64 eigh's
+     dominant eigenvector up to sign;
   3. main path on real data: the port's CLI on nir/octane (A=10) and toy
      (A=2) in float32, tables against tests/golden, optimal component
-     counts equal, and exactly A kernel launches per fit;
+     counts equal, and exactly A kernel launches per fit; E1 launches
+     none for nir (one response) and A each for toy's fit, LOO fold batch
+     and LSO fold batch;
   4. main path at real size: PLSModel on 100000×5000 X, 10 Y, 20
      components (the repo's single-chip configuration, BASELINE.json),
      made on the card from --seed; f32 against the same fit in f64, and
      x_storage="bf16" against f32 within the bf16 budget, all 20 of its
      K2 launches on the cols path; the f32 and bf16 fit walls, warm, in
-     turns (f32, bf16, bf16, f32, f32, bf16);
+     turns (f32, bf16, bf16, f32, f32, bf16); every component's
+     eigenvector on E1: `ops.eigen.path_calls`, set to 0 just before
+     phase 3, reads after phase 4 toy's 6 kernel launches and 20 for each
+     of phase 4's 9 fits, and no eigh;
   5. timing with CUDA events (median of 25 after warm-up, one call per
      event pair; and back to back, 10 calls per pair, 5 pairs) at
      100000×5000: K1; K2 in its column-owning design beside its earlier
@@ -66,7 +78,12 @@ Phases, each of which fails the run:
      cluster path: f32 against float64 on the card (FIT_COEF_RTOL), bf16
      storage against f32 (BF16_COEF_RTOL), 80 launches of each cluster
      kernel and none of the others, the warm walls in turns beside 20 ×
-     the pass-time gain over the two-pass form;
+     the pass-time gain over the two-pass form; last, E1 at phase 2's
+     three shapes in float32 and float64: its device time a call, 10
+     launches queued behind a sleep of the stream between each event
+     pair (median of 5 pairs), against eigh's time a call as the stream
+     sees it (it reads cuSOLVER's info back inside the call; median of
+     25), with the twin's sweeps and the time a dependent round;
   6. the sweep path: `pls_tpu_torch.tools.kernel_variants.sweep` at its
      default 65536×2048 and at 100000×5000, in f32 and in bf16, printing
      its tables (every variant beside the shipped kernel, the plain form
@@ -199,13 +216,16 @@ them to 0 before its calls and reads them after, and its K1 launches
 (not those `roofline_report` times) join the record; so do phase 12's
 (its in-memory fit's, A of them; the tools' processes keep their own
 counts).  The last
-two lines of stdout are the kernels' JSON record (K1-K5 and K1/K2's
-cluster kernels; ms is the back-to-back time per call, K1/K2 at
+two lines of stdout are the kernels' JSON record (K1-K5, K1/K2's
+cluster kernels and E1; ms is the back-to-back time per call, K1/K2 at
 100000×5000, their cluster kernels at 20000×30000, K3-K5 of the best
 variant at 65536×2048 by the sweep's chain slope, timed again back to
-back; K5's the faster of its two designs' best, timed in turns; each
-with bound_ms, the larger of its bytes over 3.35 TB/s and its flops over
-67 TFLOP/s f32, and library_ms) and {"ok": true, "device": {...}};
+back; K5's the faster of its two designs' best, timed in turns; E1's at
+(1, 10, 10) float32, as the f32 fits hand C over, with its launches the
+main path's; each with bound_ms, the larger of its bytes over 3.35 TB/s
+and its flops over 67 TFLOP/s f32 (E1: its rotations' float64 flops
+over 34 TFLOP/s), and library_ms, E1's eigh; E1's plain_ms is null: its
+twin runs on the CPU) and {"ok": true, "device": {...}};
 the card's nvidia-smi line is printed in phase 1 and again just before
 the kernels' record.  Without a CUDA device,
 or outside a checkout of the repo, the script exits non-zero and prints
@@ -284,9 +304,21 @@ SHAPE_DTYPES = {(128, 262_144): (torch.bfloat16,), (64, 140_000): (torch.float32
 WIDE_PATHS = {**dict.fromkeys([(2048, 30_000), (1024, 30_001), (512, 65_536), (256, 131_072),
                                (128, 262_144), (64, 140_000), *WIDE_TIMED], "cluster"),
               (64, 262_152): "wide"}
-# the published H100 SXM peaks the bound is taken against (700 W)
+# the published H100 SXM peaks the bound is taken against (700 W); FP64
+# without tensor cores for E1
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12
+# E1: (B, M) of a fit's component, a fold batch of 8, and a batch of 600;
+# its dominant eigenvector against float64 eigh's, up to sign (float32 C:
+# the result rounded to float32 once)
+EIGEN_SHAPES = [(1, 10), (8, 10), (600, 10)]
+EIGEN_ATOL = {torch.float64: 1e-12, torch.float32: 1e-6}
+EIGEN_HOLD_CYCLES = 20_000_000  # a sleep of the stream that E1's timed launches queue behind
+# E1's launches on the main path: an eigenvector a component of phase 4's
+# fits (f32, f64, bf16, six timed; A = 20) and of the toy CLI's (M = 2, A
+# = 2: the fit, LOO's fold batch, LSO's fold batch); nir has M = 1
+MAIN_PATH_EIGEN = 9 * 20 + 3 * 2
 # phase 6: the kernel-variant sweep's path
 SWEEP = (65_536, 2_048)  # the sweep's default size
 SWEEP_ITERS = 10
@@ -420,6 +452,7 @@ KERNELS = [
     ("mxu_f32", "deflate_variants.cu", "tools/kernel_variants.py:153", ("mxu_f32",)),
     ("vpu_bf16", "deflate_variants.cu", "tools/kernel_variants.py:208",
      ("vpu_bf16", "cols_bf16")),
+    ("jacobi_dominant", "eigen.cu", "pls_tpu/ops/eigen.py:33", ("jacobi_dominant",)),
 ]
 
 
@@ -513,7 +546,7 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def phase_device(deflate, variants) -> None:
+def phase_device(deflate, variants, eigen) -> None:
     print(nvidia_smi())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -524,11 +557,12 @@ def phase_device(deflate, variants) -> None:
     from pls_tpu_torch.utils.nvcc import library_path
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        for fut in [pool.submit(deflate.build), pool.submit(variants.build)]:
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+        for fut in [pool.submit(deflate.build), pool.submit(variants.build),
+                    pool.submit(eigen._library)]:
             fut.result()
     print(f"kernels build+load {time.perf_counter() - t0:.2f} s")
-    for source in ("deflate.cu", "deflate_variants.cu"):
+    for source in ("deflate.cu", "deflate_variants.cu", "eigen.cu"):
         print(f"  {library_path(source).name}")
         log = library_path(source).with_suffix(".log")
         if log.exists():
@@ -594,6 +628,41 @@ def phase_kernel(deflate, dev, seed: int) -> dict:
     return abs_err
 
 
+def psd_batch(B: int, M: int, dtype, g) -> torch.Tensor:
+    """B random PSD M×M matrices G Gᵀ, made in float64 on the card."""
+    G = torch.randn((B, M, M), generator=g, device=g.device, dtype=torch.float64)
+    return (G @ G.mT).to(dtype)
+
+
+def phase_eigen(eigen, dev, seed: int) -> float:
+    """E1 against its twin and float64 eigh at EIGEN_SHAPES; returns the
+    largest |kernel − twin| (0: they agree bit for bit)."""
+    g = torch.Generator(dev).manual_seed(seed + 7)
+    worst = 0.0
+    for B, M in EIGEN_SHAPES:
+        for dtype, atol in EIGEN_ATOL.items():
+            C = psd_batch(B, M, dtype, g)
+            before = eigen.path_calls["kernel"]
+            v, v2 = eigen.jacobi_dominant_cuda(C), eigen.jacobi_dominant_cuda(C)
+            torch.cuda.synchronize()
+            name = f"jacobi_dominant {dtype} ({B}, {M}, {M})"
+            check(eigen.path_calls["kernel"] == before + 2, f"{name}: launches not counted")
+            check(v.dtype == dtype and tuple(v.shape) == (B, M), f"{name}: output")
+            check(torch.equal(v, v2), f"{name}: two launches differ")
+            plain, sweeps = eigen._jacobi(C.cpu())
+            u = torch.linalg.eigh(C.double()).eigenvectors[..., -1]
+            vd = v.double()
+            u = torch.where((vd * u).sum(-1, keepdim=True) < 0, -u, u)
+            e_eigh = float((vd - u).abs().max())
+            e_plain = float((v.cpu() - plain).abs().max())
+            print(f"{name}: vs twin max abs {e_plain:.3e} ({int(sweeps.max())} sweeps at most); "
+                  f"vs f64 eigh up to sign {e_eigh:.3e}; bit-identical relaunch")
+            check(torch.equal(v.cpu(), plain), f"{name}: differs from its twin by {e_plain:.2e}")
+            check(e_eigh <= atol, f"{name}: vs f64 eigh {e_eigh:.2e} > {atol}")
+            worst = max(worst, e_plain)
+    return worst
+
+
 def run_cli(args: list[str]) -> str:
     from pls_tpu_torch.cli import main as cli_main
 
@@ -605,22 +674,24 @@ def run_cli(args: list[str]) -> str:
     return err.getvalue()
 
 
-def phase_cli(deflate) -> dict:
+def phase_cli(deflate, eigen) -> dict:
     walls = {}
-    for name, xf, yf, A in [
-        ("nir", "nir.csv", "octane.csv", 10),
-        ("toy", "toyX.csv", "toyY.csv", 2),
+    for name, xf, yf, A, n_eig in [
+        ("nir", "nir.csv", "octane.csv", 10, 0),
+        ("toy", "toyX.csv", "toyY.csv", 2, 3 * 2),
     ]:
-        before = dict(deflate.launches)
+        before, e_before = dict(deflate.launches), eigen.path_calls["kernel"]
         t0 = time.perf_counter()
         text = run_cli([str(DATA / xf), str(DATA / yf), str(A)])
         walls[name] = time.perf_counter() - t0
         d32 = deflate.launches["deflate_f32"] - before["deflate_f32"]
         d16 = deflate.launches["deflate_bf16"] - before["deflate_bf16"]
+        d_eig = eigen.path_calls["kernel"] - e_before
         errs = golden_errors(parse_report(text), name)
-        print(f"cli {name} A={A}: wall {walls[name]:.3f} s, launches f32 {d32} bf16 {d16}, "
-              f"vs golden {json.dumps(errs)}")
+        print(f"cli {name} A={A}: wall {walls[name]:.3f} s, launches f32 {d32} bf16 {d16} "
+              f"jacobi_dominant {d_eig}, vs golden {json.dumps(errs)}")
         check(d32 == A and d16 == 0, f"cli {name}: {d32} f32 launches, expected {A}")
+        check(d_eig == n_eig, f"cli {name}: {d_eig} eigenvector launches, expected {n_eig}")
         check(errs["coef_rel"] <= COEF_RTOL, f"cli {name}: coefficients {errs['coef_rel']:.2e}")
         check(errs["ev_abs"] <= EV_ATOL, f"cli {name}: explained variance {errs['ev_abs']:.2e}")
         for m in ("loo", "lso"):
@@ -691,8 +762,11 @@ def phase_big(deflate, dev, seed: int) -> float:
     return fit_walls
 
 
-def times_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 1) -> list[float]:
-    """CUDA-event times of `inner` calls of fn back to back, per call."""
+def times_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 1,
+             hold: int = 0) -> list[float]:
+    """CUDA-event times of `inner` calls of fn back to back, per call;
+    with hold, the calls queue behind a sleep of the stream of that many
+    cycles, so that the host's time between launches does not count."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -700,6 +774,8 @@ def times_ms(fn, reps: int = 25, warmup: int = 3, inner: int = 1) -> list[float]
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(hold)
         e0.record()
         for _ in range(inner):
             fn()
@@ -822,6 +898,35 @@ def wide_timing(deflate, dev, g) -> dict:
         del X32
         torch.cuda.empty_cache()
     out["gain"] = gain
+    return out
+
+
+def eigen_timing(eigen, dev, seed: int) -> dict:
+    """E1 against eigh at EIGEN_SHAPES in float32 and float64; returns its
+    kernels-line entry at (1, 10, 10) float32."""
+    g = torch.Generator(dev).manual_seed(seed + 8)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for B, M in EIGEN_SHAPES:
+            C = psd_batch(B, M, dtype, g)
+            ms = statistics.median(times_ms(lambda: eigen.jacobi_dominant_cuda(C), reps=5,
+                                            inner=10, hold=EIGEN_HOLD_CYCLES))
+            lib_ms = median_ms(lambda: torch.linalg.eigh(C).eigenvectors[..., -1])
+            sweeps = eigen._jacobi(C.cpu())[1]
+            m = M + M % 2
+            rounds = int(sweeps.max()) * (m - 1)
+            # each rotated pair of entries costs 8 flops: rows p and q of A
+            # (its upper half), then V's columns, m/2 pairs a round
+            flops = float(sweeps.sum()) * (m - 1) * (m // 2) * 8 * (m + M)
+            nbytes = (B * M * M + B * M) * C.element_size()
+            byte_ms, flop_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F64_FLOPS * 1e3
+            b_ms, b_by = (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
+            print(f"jacobi_dominant {dtype} ({B}, {M}, {M}): {ms * 1e3:.2f} us a call back to "
+                  f"back (queued); eigh {lib_ms * 1e3:.2f} us a call; {int(sweeps.max())} "
+                  f"sweeps at most, {ms * 1e6 / rounds:.1f} ns a dependent round of {rounds}; "
+                  f"bound {b_ms * 1e3:.6f} us ({b_by})")
+            if (B, M, dtype) == (1, 10, torch.float32):
+                out["jacobi_dominant"] = (ms, None, lib_ms, b_ms, b_by)
     return out
 
 
@@ -2718,7 +2823,7 @@ def main() -> int:
     if args.rank is not None:
         return phase_parallel_rank(args)
     import pls_tpu_torch
-    from pls_tpu_torch.ops import deflate, deflate_variants as dv
+    from pls_tpu_torch.ops import deflate, deflate_variants as dv, eigen
     from pls_tpu_torch.tools import kernel_variants as kv
 
     check(Path(pls_tpu_torch.__file__).resolve().is_relative_to(ROOT),
@@ -2726,23 +2831,30 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    phase_device(deflate, dv)
+    phase_device(deflate, dv, eigen)
     abs_err = phase_kernel(deflate, dev, args.seed)
     abs_err.update(phase_variants(dv, kv, dev, args.seed))
+    abs_err["jacobi_dominant"] = phase_eigen(eigen, dev, args.seed)
 
-    for counts in (deflate.launches, deflate.path_launches):  # the main path's run starts here
+    # the main path's run starts here
+    for counts in (deflate.launches, deflate.path_launches, eigen.path_calls):
         for k in counts:
             counts[k] = 0
-    cli_walls = phase_cli(deflate)
+    cli_walls = phase_cli(deflate, eigen)
     fit_walls = phase_big(deflate, dev, args.seed)
     launches = dict(deflate.launches)  # ... and ends here
-    print(f"main path launches: {launches}, by path {deflate.path_launches}; cli walls "
-          f"{cli_walls}; 20-component fit walls {fit_walls}")
+    eigen_calls = dict(eigen.path_calls)
+    launches["jacobi_dominant"] = eigen_calls["kernel"]
+    print(f"main path launches: {launches}, by path {deflate.path_launches}; eigenvectors by "
+          f"path {eigen_calls}; cli walls {cli_walls}; 20-component fit walls {fit_walls}")
     check(launches["deflate_f32"] > 0 and launches["deflate_bf16"] > 0,
           "a kernel of the path never launched")
+    check(eigen_calls == {"kernel": MAIN_PATH_EIGEN, "eigh": 0, "power": 0},
+          f"main path eigenvectors {eigen_calls}, expected {MAIN_PATH_EIGEN} on the kernel")
 
     times = phase_timing(deflate, dev, args.seed)
     gain = times.pop("gain")
+    times.update(eigen_timing(eigen, dev, args.seed))
 
     for counts in (deflate.launches, deflate.path_launches):  # the wide fit's run starts here
         for k in counts:
