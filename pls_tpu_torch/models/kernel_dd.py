@@ -6,11 +6,13 @@ quantity and every X contraction is an unevaluated pair of float32 values
 (about 49 mantissa bits), built from error-free transforms, because the
 TPU has no float64.  The card and the CPU have float64, so here the same
 inputs, X and Y rounded to float32 as the JAX package takes them, run the
-plain component loop (`kernel_pls._fit_kernel`) in float64: at least as
-accurate as the pairs, and a float64 product on the H100 runs on its
-tensor cores.  The state comes back in the input's dtype (float32 for
-bfloat16 input).  No kernel takes float64 X: the passes are torch
-products.
+plain component loop in float64: at least as accurate as the pairs, and a
+float64 product on the H100 runs on its tensor cores.  The rounding and
+the widening live in `kernel_pls._fit_kernel`, beside "compensated"'s, so
+`fit_dd` and `fit(..., precision="dd")` are one path.  The state comes
+back in the input's dtype (float32 for bfloat16 input).  No kernel takes
+float64 X: the passes are torch products.  `fit_from_stats_dd` adds the
+statistics' lo parts in float64 before the statistics fit.
 """
 
 from __future__ import annotations
@@ -37,16 +39,7 @@ def fit_dd(
     """Kernel type 1 (or type 2) on X (N, K) and Y (N, M) rounded to
     float32, with the loop in float64: what `fit(..., precision="dd")`
     runs.  X and Y may carry a leading fold axis."""
-    return _fit_dd(X, Y, A, type1, power_iters)
-
-
-def _fit_dd(X, Y, A, type1, power_iters, reduce=None) -> PLSFit:
-    """`fit_dd`, with `reduce` as in `kernel_pls._fit_kernel` (a
-    row-sharded fit)."""
-    if Y.ndim == X.ndim - 1:
-        Y = Y[..., None]
-    wide = _fit_kernel(_f64_of_f32(X), _f64_of_f32(Y), A, type1, power_iters, "dd", reduce)
-    return _cast(wide, _state_dtype(X.dtype))
+    return _fit_kernel(X, Y[..., None] if Y.ndim == X.ndim - 1 else Y, A, type1, power_iters, "dd")
 
 
 def fit_from_stats_dd(

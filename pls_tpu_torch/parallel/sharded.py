@@ -15,13 +15,14 @@ one device (`PLSMesh.device`) and passes what it holds:
 `partitions` is always the whole (trials, N) matrix of global row indices.
 Every output is replicated: the same tensors on every rank.
 
-The row-sharded fits run the one-device component loop
-(`models.kernel_pls._fit_kernel`) with its over-rows hook set to the
-'rows' psum: XᵀY (and XᵀX for type 2) once, and for type 1 the fused
-[p; tt] of each component, one all-reduce of K+1 values after the local
-pass.  That pass is `ops.deflate.deflate_pass` on this rank's rows: K1
-(K2 for x_storage="bf16") on the card, the plain twin on the CPU, where
-the JAX package runs `_deflate_pass_pallas` on each shard
+Every fit here runs the one-device component loop
+(`models.kernel_pls._components`, under its `pls.fit` spans).  The
+row-sharded fits enter it through `_fit_kernel` with its over-rows hook
+set to the 'rows' psum: XᵀY (and XᵀX for type 2) once, and for type 1
+the fused [p; tt] of each component, one all-reduce of K+1 values after
+the local pass.  That pass is `ops.deflate.deflate_pass` on this rank's
+rows: K1 (K2 for x_storage="bf16") on the card, the plain twin on the
+CPU, where the JAX package runs `_deflate_pass_pallas` on each shard
 (`sharded.py:176-189`).  Where the JAX package gathers an output sharded
 over an axis (T, the fold-sharded errors, the column-sharded state), each
 rank writes its block into zeros and the blocks are summed.
@@ -46,13 +47,13 @@ from pls_tpu_torch.models.kernel_pls import (
     F64_PRECISIONS,
     KERNEL_METHODS,
     _check_method,
+    _components,
     _fit_kernel,
     _fit_method,
     _prec_ctx,
     _state_dtype,
 )
 from pls_tpu_torch.models.predict import residuals_all_components
-from pls_tpu_torch.ops.eigen import dominant_eigenvector
 from pls_tpu_torch.parallel.mesh import PLSMesh
 from pls_tpu_torch.types import METHOD, PLSFit, Residual
 from pls_tpu_torch.utils.batching import chunked_map
@@ -256,15 +257,18 @@ def fit_colsharded(
     """COLUMN-sharded fit (`pls_tpu/parallel/sharded.py:75-110`): X is this
     rank's block of columns (`shard_cols` over `axis`), Y all of Y.
 
-    Every K-sized object (XY, w, r, p, the Gram-Schmidt buffers) stays in
-    blocks.  The sums over K are all-reduces over `axis`: t = X r (an
-    N-vector), w·w, XYᵀXY (M×M), P w (A) and XYᵀr (M) per component;
-    p = Xᵀt and the deflation of XY stay local.  The fused pass cannot
-    serve here, as t needs its cross-rank sum before p: two torch
-    products with the all-reduce between them, as XLA's partitioner runs
-    the JAX package's fit.  Type 2's XX r is Xᵀ(X r) here, so both types
-    run this loop, type 2 keeping no T.  W, P and R are gathered to
-    replicated (K, A); type 1's T (N, A) is replicated as computed."""
+    It runs the one-device component loop (`models.kernel_pls._components`,
+    with its spans), in which every K-sized object (XY, w, r, p, the
+    Gram-Schmidt buffers) stays in blocks.  The sums over K are
+    all-reduces over `axis`: the loop's over-K hook `ksum` sums w·w,
+    XYᵀXY (M×M), P w (A) and XYᵀr (M) per component, and the projection
+    sums t = X r (an N-vector); p = Xᵀt and the deflation of XY stay
+    local.  The fused pass cannot serve here, as t needs its cross-rank
+    sum before p: two torch products with the all-reduce between them, as
+    XLA's partitioner runs the JAX package's fit.  Type 2's XX r is
+    Xᵀ(X r) here, so both types take this projection, type 2 keeping no
+    T.  W, P and R are gathered to replicated (K, A); type 1's T (N, A) is
+    replicated as computed."""
     if method not in KERNEL_METHODS:
         raise ValueError(f"a column-sharded fit takes the kernel methods, not {method}")
     _check_method(method, x_storage, precision)
@@ -278,36 +282,20 @@ def fit_colsharded(
         X = X.to(torch.bfloat16)
     acc = _state_dtype(X.dtype)
     Xa, Ya = X.to(acc), Y.to(X.dtype).to(acc)
+    type1 = method == METHOD.KERNEL_TYPE1
 
     def psum(t):
         return mesh.psum(t, axis)
 
-    M = Y.shape[1]
+    def project(r):
+        t = psum(Xa @ r)
+        return Xa.mT @ t, t @ t, t if type1 else None
+
     with _prec_ctx(precision):
         XY = Xa.mT @ Ya  # (K_local, M): every row is here, no sum
-        Pb = XY.new_zeros((A, X.shape[1]))
-        Rb = torch.zeros_like(Pb)
-        Ws, Qs, Ts = [], [], []
-        for a in range(A):
-            if M == 1:
-                w = XY[:, 0]
-            else:
-                w = XY @ dominant_eigenvector(psum(XY.mT @ XY), power_iters)
-            w = w / torch.sqrt(psum((w * w).sum(0, keepdim=True)))
-            r = w - Rb.mT @ psum(Pb @ w)
-            t = psum(Xa @ r)
-            tt = t @ t
-            p = (Xa.mT @ t) / tt
-            q = psum(XY.mT @ r) / tt
-            Pb[a] = p
-            Rb[a] = r
-            Ws.append(w)
-            Qs.append(q)
-            Ts.append(t)
-            XY = XY - p[:, None] * q[None, :] * tt
-    W, P, R = (_gather(B, k0, K, mesh, axis) for B in (torch.stack(Ws, -1), Pb.mT, Rb.mT))
-    T = torch.stack(Ts, -1) if method == METHOD.KERNEL_TYPE1 else W.new_zeros((0, A))
-    return PLSFit(W=W, P=P, Q=torch.stack(Qs, -1), R=R, T=T, method=method)
+    f = _components(XY, A, project, power_iters=power_iters, precision=precision, ksum=psum)
+    W, P, R = (_gather(B, k0, K, mesh, axis) for B in (f.W, f.P, f.R))
+    return PLSFit(W=W, P=P, Q=f.Q, R=R, T=f.T, method=method)
 
 
 # ---------- cross-validation ----------

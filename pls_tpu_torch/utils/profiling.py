@@ -52,7 +52,7 @@ SPANS = (
     "pls.cv.global_stats",  # XᵀX and XᵀY for the downdated CVs (and X's bf16 cast)
     "pls.cv.fold_batch",  # one batch of CV folds: masks, refits, residuals
     "pls.cv.select",  # the Wilcoxon choice of component count from CV errors
-    "pls.fit",  # one kernel-PLS fit, or one batch of fold fits, XᵀY included
+    "pls.fit",  # the component loop of one kernel-PLS fit or one batch of fold fits
     "pls.fit.component",  # one component of that fit's loop
     "pls.fit.eigh",  # the dominant eigenvector of XYᵀXY (eigh or power iterations)
     "pls.plsda.fit",  # PLSDAClassifier.fit: labels, priors, indicators, scaling and the fit

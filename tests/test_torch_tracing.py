@@ -2,8 +2,11 @@
 CPU: each case runs under `torch.profiler.profile(activities=[CPU])`, and
 the exported Chrome trace's `user_annotation` ranges are read back.
 
-- a kernel-#1 fit: one `pls.fit`, a `pls.fit.component` a component
-  nested in it, and one `pls.fit.eigh` in each component;
+- each local entry into the one component loop (`fit` of kernel types 1
+  and 2, `fit_folds`, `fit_from_stats`, `fit_from_stats_downdated`,
+  `fit_from_stats_blockdowndated`, `cv_kfold_onepass`): one `pls.fit`, a
+  `pls.fit.component` a component nested in it, and one `pls.fit.eigh` in
+  each component (M = 3);
 - `run_pipeline` on the bundled nir/octane CSVs (LOO and LSO, the
   default): each stage once inside `pls.pipeline`, the partitions once, a
   fold batch for each CV;
@@ -27,14 +30,23 @@ import json
 import re
 from pathlib import Path
 
+import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from pls_tpu_torch import cli
 from pls_tpu_torch.config import PLSRunConfig, run_pipeline
-from pls_tpu_torch.cv.kfold import cv_kfold_downdate
-from pls_tpu_torch.models.kernel_pls import fit
+from pls_tpu_torch.cv.kfold import cv_kfold_downdate, cv_kfold_onepass
+from pls_tpu_torch.models.kernel_pls import (
+    fit,
+    fit_folds,
+    fit_from_stats,
+    fit_from_stats_blockdowndated,
+    fit_from_stats_downdated,
+)
 from pls_tpu_torch.models.plsda import PLSDAClassifier
+from pls_tpu_torch.models.streaming import FoldStatsAccumulator
+from pls_tpu_torch.types import METHOD
 from pls_tpu_torch.utils import profiling
 
 PKG = Path(profiling.__file__).resolve().parents[1]
@@ -69,9 +81,34 @@ def _data(n=64, k=12, m=3, seed=0):
     return torch.randn(n, k, generator=g), torch.randn(n, m, generator=g)
 
 
-def test_a_fit_gives_one_span_a_component_and_an_eigh_in_each(tmp_path):
+def _masks(n, k=3):
+    """(k, n) masks, fold f leaving out the rows i with i % k == f."""
+    return (torch.arange(k)[:, None] != torch.arange(n) % k).double()
+
+
+def _fold_stats(X, Y, k=4):
+    acc = FoldStatsAccumulator(X.shape[1], Y.shape[1], k, X.dtype, device="cpu")
+    return acc.update(X, Y, (torch.arange(X.shape[0]) % k).numpy())
+
+
+# each entry into kernel_pls._components, as a function of (X, Y, A)
+LOOP_ENTRIES = {
+    "fit-type1": lambda X, Y, A: fit(X, Y, A),
+    "fit-type2": lambda X, Y, A: fit(X, Y, A, METHOD.KERNEL_TYPE2),
+    "fit_folds": lambda X, Y, A: fit_folds(X, Y, _masks(X.shape[0]), A),
+    "fit_from_stats": lambda X, Y, A: fit_from_stats(X.T @ X, X.T @ Y, A),
+    "fit_from_stats_downdated":
+        lambda X, Y, A: fit_from_stats_downdated(X.T @ X, X.T @ Y, X[0], Y[0], A),
+    "fit_from_stats_blockdowndated":
+        lambda X, Y, A: fit_from_stats_blockdowndated(X.T @ X, X.T @ Y, X[:8], Y[:8], A),
+    "cv_kfold_onepass": lambda X, Y, A: cv_kfold_onepass(_fold_stats(X, Y), A),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(LOOP_ENTRIES))
+def test_a_fit_gives_one_span_a_component_and_an_eigh_in_each(entry, tmp_path):
     X, Y = _data()
-    _, spans = _traced(lambda: fit(X, Y, 5), tmp_path)
+    _, spans = _traced(lambda: LOOP_ENTRIES[entry](X, Y, 5), tmp_path)
     (whole,) = _named(spans, "pls.fit")
     comps = _named(spans, "pls.fit.component")
     eighs = _named(spans, "pls.fit.eigh")
