@@ -203,6 +203,18 @@ Phases, each of which fails the run:
      `pls_tpu_torch.tools.accumulator_sweep` at its defaults and
      `pls_tpu_torch.tools.flagship_wall --runs 3`, each in its own process,
      their JSON lines printed.
+ 13. the k-fold Gram (`ops.stats.gram`, which `cv.loo.global_stats`
+     forms XᵀX with) on phase 4's 100000×5000 X in float32, TF32 off:
+     the whole `X.mT @ X` against the upper block triangle and its mirror
+     of `gram_plan`, in turns (whole, triangle, triangle, whole), each
+     the median of 5 CUDA-event pairs; the sweep of GRAM_WIDTHS' strip
+     widths and of recursive halving to GRAM_DEPTHS (2, 4, 8 leaves):
+     each plan's time, its flops over the whole product's, its rate on
+     its own flops; each within GRAM_RTOL of float64 XᵀX and exactly
+     symmetric; the default plan's products alone; at each of GRAM_KS'
+     narrower widths of the same rows, the whole product against the
+     plan's; the peak device memory of each form, the triangle's at most
+     K²·4 bytes above the whole product's.
 
 The K1/K2 launch counts are set to 0 just before phase 3 and read just
 after phase 4; those of the cluster kernels just before and after phase
@@ -439,6 +451,20 @@ CSV_LATENT = 30
 CSV_PREFIX = 5_000  # rows the plain parser is held bit-equal on
 CSV_BLOCK = 1_000  # rows made and formatted at once
 TOOL_TIMEOUT = 600  # seconds: each of the two tools' subprocess runs
+
+# phase 13: the k-fold Gram at BIG in float32.  The sweep: strip widths
+# (multiples of the SIMT sgemm's 128-column tiles) and recursive halving
+# of the diagonal blocks on the same 128-column grid; the planner's
+# threshold by K at BIG's rows
+GRAM_WIDTHS = [256, 384, 512, 640, 768, 1024, 1280, 1664, 2560]
+GRAM_DEPTHS = [1, 2, 3, 4]
+GRAM_GRID = 128
+GRAM_KS = [512, 768, 1024, 1536, 2048, 3840]
+GRAM_REPS = 5
+# relative Frobenius error against float64 XᵀX: float32 dots over 100 000
+# rows, the whole product 9.3e-7 from it, the sweep's plans 6.8e-7 to 1.2e-6
+# on an H100
+GRAM_RTOL = 2e-6
 
 # (kernel name, its source in pls_tpu_torch/csrc, the TPU kernel it
 # replaces, the launch counters that are its launches)
@@ -2808,6 +2834,112 @@ def phase_csv(deflate, dev, seed: int) -> dict:
     return out
 
 
+def halving_plan(lo: int, hi: int, depth: int) -> list[tuple[int, int, int, int]]:
+    """`ops.stats.gram`'s products by recursive halving of the diagonal
+    block [lo, hi) on GRAM_GRID columns: its off-diagonal quarter, then
+    each half, down to 2**depth diagonal leaves."""
+    if depth == 0:
+        return [(lo, hi, lo, hi)]
+    mid = lo + ((hi - lo) // 2 + GRAM_GRID // 2) // GRAM_GRID * GRAM_GRID
+    return [(lo, mid, mid, hi), *halving_plan(lo, mid, depth - 1), *halving_plan(mid, hi, depth - 1)]
+
+
+def phase_gram(dev, seed: int) -> dict:
+    """Phase 13: the k-fold Gram, whole against the upper block triangle,
+    and the sweep of its plans.  Returns its measurements."""
+    from pls_tpu_torch.models.kernel_pls import _prec_ctx
+    from pls_tpu_torch.ops import stats
+
+    N, K = BIG
+    torch.cuda.empty_cache()
+    X, _ = make_big(dev, seed)
+    Xd = X.double()
+    ref = Xd.mT @ Xd
+    del Xd
+    out = {"shape": [N, K], "width": stats._GRAM_WIDTH, "strips": len(stats.gram_plan(K))}
+    whole_flops = 2 * N * K * K
+
+    def whole():
+        return X.mT @ X
+
+    def timed(fn) -> float:
+        return statistics.median(times_ms(fn, reps=GRAM_REPS, warmup=2))
+
+    with _prec_ctx("highest"):
+        check(not torch.backends.cuda.matmul.allow_tf32, "phase 13: TF32 is on")
+        G = whole()
+        out["whole_rel"] = fro_rel(G, ref)
+        out["whole_symmetric"] = bool(torch.equal(G, G.mT))
+        del G
+        before = stats.gram_calls["triangle"]
+        G = stats.gram(X)
+        check(stats.gram_calls["triangle"] == before + 1, "phase 13: gram left the triangle")
+        out["triangle_rel"] = fro_rel(G, ref)
+        check(torch.equal(G, G.mT), "phase 13: the triangle's XᵀX is not symmetric")
+        check(out["triangle_rel"] <= GRAM_RTOL,
+              f"phase 13: triangle rel err {out['triangle_rel']:.2e} > {GRAM_RTOL}")
+        del G
+        turns = {"whole": [], "triangle": []}
+        for name in ("whole", "triangle", "triangle", "whole"):
+            turns[name].append(timed(whole if name == "whole" else lambda: stats.gram(X)))
+        out["turns_ms"] = turns
+        out["whole_ms"] = statistics.median(turns["whole"])
+        out["triangle_ms"] = statistics.median(turns["triangle"])
+        plan = stats.gram_plan(K)
+        out["products_ms"] = timed(lambda: [
+            X[:, r0:r1].mT @ X[:, c0:c1] for r0, r1, c0, c1 in plan])
+        print(f"phase 13 gram {N}×{K} f32: whole {out['whole_ms']:.3f} ms "
+              f"({whole_flops / out['whole_ms'] / 1e9:.1f} TFLOP/s), triangle of "
+              f"{out['strips']} strips {out['triangle_ms']:.3f} ms (products alone "
+              f"{out['products_ms']:.3f}); turns {turns}; rel err whole "
+              f"{out['whole_rel']:.3e} triangle {out['triangle_rel']:.3e}")
+
+        sweep = []
+        plans = [(f"strips_{w}", stats.gram_plan(K, w, 0)) for w in GRAM_WIDTHS]
+        plans += [(f"halving_{d}", halving_plan(0, K, d)) for d in GRAM_DEPTHS]
+        for name, plan in plans:
+            G = stats.gram(X, plan)
+            err = fro_rel(G, ref)
+            check(torch.equal(G, G.mT), f"phase 13 {name}: not symmetric")
+            check(err <= GRAM_RTOL, f"phase 13 {name}: rel err {err:.2e} > {GRAM_RTOL}")
+            del G
+            ms = timed(lambda: stats.gram(X, plan))
+            flops = sum(2 * N * (r1 - r0) * (c1 - c0) for r0, r1, c0, c1 in plan)
+            row = {"plan": name, "products": len(plan), "ms": ms,
+                   "flop_share": flops / whole_flops, "tflops": flops / ms / 1e9, "rel": err}
+            sweep.append(row)
+            print(f"phase 13 sweep {json.dumps(row)}")
+        out["sweep"] = sweep
+        del ref
+
+        by_k = []
+        for k in GRAM_KS:
+            Xk = X[:, :k].contiguous()
+            row = {"K": k, "strips": len(stats.gram_plan(k)),
+                   "whole_ms": timed(lambda: Xk.mT @ Xk),
+                   "plan_ms": timed(lambda: stats.gram(Xk))}
+            by_k.append(row)
+            print(f"phase 13 by K {json.dumps(row)}")
+            del Xk
+        out["by_k"] = by_k
+
+        peaks = {}
+        for name in ("whole", "triangle"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            G = whole() if name == "whole" else stats.gram(X)
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - base
+            del G
+        out["peak_bytes"] = peaks
+        check(peaks["triangle"] <= peaks["whole"] + K * K * 4,
+              f"phase 13: the triangle's peak {peaks} passes the whole product's by more than K²·4")
+    del X
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2945,6 +3077,10 @@ def main() -> int:
           f"{json.dumps(csv_out)}; tools' devices {[t['device'] for t in tools.values()]}")
     check(csv_launches["deflate_f32"] == CSV_A, "phase 12 launched K1 other than its fit's A times")
     launches["deflate_f32"] += csv_launches["deflate_f32"]
+
+    t0 = time.perf_counter()
+    gram_out = phase_gram(dev, args.seed)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s; {json.dumps(gram_out)}")
 
     check("jax" not in sys.modules and "pls_tpu" not in sys.modules, "jax was imported")
     check(all(sum(launches[c] for c in counters) > 0 for *_, counters in KERNELS),

@@ -23,6 +23,7 @@ import torch
 
 from pls_tpu_torch.models.kernel_pls import _prec_ctx, fit_folds, fit_from_stats_downdated
 from pls_tpu_torch.models.predict import residuals_all_components
+from pls_tpu_torch.ops.stats import gram
 from pls_tpu_torch.types import METHOD, Residual
 from pls_tpu_torch.utils.batching import chunked_map, default_batch_size
 from pls_tpu_torch.utils.profiling import span
@@ -84,7 +85,8 @@ def global_stats(X: torch.Tensor, Y: torch.Tensor, x_storage: str | None, precis
     """(XX, XY, Xs, acc): XᵀX and XᵀY in the accumulation dtype `acc`, and
     X as stored (`Xs`, bfloat16 for x_storage="bf16", whose products then
     run in float32 on Y rounded to bfloat16, as the JAX package's
-    `preferred_element_type` products)."""
+    `preferred_element_type` products).  XᵀX by `ops.stats.gram`: its upper
+    block triangle and a mirror at wide K."""
     acc = X.dtype if X.element_size() >= 4 else torch.float32
     if x_storage is not None and x_storage not in ("bf16", "bfloat16"):
         raise ValueError(f"unknown x_storage {x_storage!r} (use 'bf16')")
@@ -92,8 +94,8 @@ def global_stats(X: torch.Tensor, Y: torch.Tensor, x_storage: str | None, precis
         Xs = X if x_storage is None else X.to(torch.bfloat16)
         if Xs.element_size() < 4:
             Xw = Xs.to(acc)
-            return Xw.mT @ Xw, Xw.mT @ Y.to(torch.bfloat16).to(acc), Xs, acc
-        return X.mT @ X, X.mT @ Y, Xs, acc
+            return gram(Xw), Xw.mT @ Y.to(torch.bfloat16).to(acc), Xs, acc
+        return gram(X), X.mT @ Y, Xs, acc
 
 
 def cv_loo_downdate(
