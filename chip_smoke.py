@@ -610,11 +610,11 @@ def phase_kernel(deflate, dev, seed: int) -> dict:
             name = deflate.kernel_name(dtype, plan.path)
             if (N, K) in WIDE_PATHS:
                 check(plan.path == WIDE_PATHS[N, K], f"{name} {N}x{K}: planned {plan.path}")
-            before = dict(deflate.path_launches)
+            before = dict(deflate.path_calls)
             t, tt, p = deflate.deflate_pass_cuda(X, r)
             t2, tt2, p2 = deflate.deflate_pass_cuda(X, r)
             torch.cuda.synchronize()
-            path = [k for k, v in deflate.path_launches.items() if v != before[k]]
+            path = [k for k, v in deflate.path_calls.items() if v != before[k]]
             check(path == [plan.path], f"{name} {N}x{K}: launched {path}")
             check(torch.equal(t, t2) and torch.equal(p, p2) and torch.equal(tt, tt2),
                   f"{name} {N}x{K}: two launches differ")
@@ -768,10 +768,10 @@ def phase_big(deflate, dev, seed: int) -> float:
           f"vs f64 (plain path, wall {wall64:.3f} s): coef rel {e_b:.3e}, ev abs {e_ev:.3e}")
     check(e_b <= FIT_COEF_RTOL and e_ev <= FIT_EV_ATOL, "100k×5k f32 fit disagrees with f64")
     del B64, ev64
-    before, cols_before = dict(deflate.launches), deflate.path_launches["cols"]
+    before, cols_before = dict(deflate.launches), deflate.path_calls["cols"]
     _, B16, ev16, wall16 = fit_big(X, Y, x_storage="bf16")
     d16 = deflate.launches["deflate_bf16"] - before["deflate_bf16"]
-    d_cols = deflate.path_launches["cols"] - cols_before
+    d_cols = deflate.path_calls["cols"] - cols_before
     e_b16, e_ev16 = rel_err(B16, B32), float((ev16 - ev32).abs().max())
     print(f"100k×5k×10 A=20 bf16 storage: wall {wall16:.3f} s, launches {d16} ({d_cols} on the "
           f"cols path); vs f32: coef rel {e_b16:.3e}, ev abs {e_ev16:.3e}")
@@ -1840,9 +1840,9 @@ def coef_rel(f, ref) -> float:
 
 def run_call(deflate, fn):
     """(fn(), its CUDA-event wall, its launches by path), printed later."""
-    before = dict(deflate.path_launches)
+    before = dict(deflate.path_calls)
     res, wall = event_wall(fn)
-    return res, wall, {k: v - before[k] for k, v in deflate.path_launches.items() if v != before[k]}
+    return res, wall, {k: v - before[k] for k, v in deflate.path_calls.items() if v != before[k]}
 
 
 def par_check(lines: list, name: str, wall: float, paths: dict, err: float, tol: float,
@@ -1892,7 +1892,7 @@ def phase_parallel(deflate, dev, seed: int, fit_walls: dict) -> tuple[dict, dict
             # NCCL sets its communicator up on the first collective
             out["nccl_setup_s"] = synced_wall(lambda: mesh.psum(torch.ones(1, device=dev),
                                                                 "rows"))[1]
-            for counts in (deflate.launches, deflate.path_launches):  # phase 10's run starts here
+            for counts in (deflate.launches, deflate.path_calls):  # phase 10's run starts here
                 for c in counts:
                     counts[c] = 0
             calls = [
@@ -1975,10 +1975,10 @@ def phase_parallel(deflate, dev, seed: int, fit_walls: dict) -> tuple[dict, dict
     print(f"phase 10, two gloo ranks sharing the card ({time.perf_counter() - t0:.1f} s with "
           f"start-up):")
     for r, res in enumerate(ranks):
-        print(f"  rank {r}: launches {res['launches']}, by path {res['path_launches']}")
+        print(f"  rank {r}: launches {res['launches']}, by path {res['path_calls']}")
         check(res["launches"] == k12_counts(3 * PAR_A, 0),
               f"rank {r}: launches {res['launches']}, expected {3 * PAR_A} K1")
-        check(res["path_launches"]["staged"] == 3 * PAR_A, f"rank {r}: K1 left the staged path")
+        check(res["path_calls"]["staged"] == 3 * PAR_A, f"rank {r}: K1 left the staged path")
     for name, res in ranks[0]["calls"].items():
         par_check([], name, res["s"], {}, res["rel_err"], PAR_RTOL)
         print(f"  {name}: wall {res['s']:.4f} s warm ({res['first_s']:.4f} s first), rel err "
@@ -2019,7 +2019,7 @@ def phase_parallel_rank(args) -> int:
                                   PAR_STEP_TRIALS)
         train = 3 * N // 4
         Xl, Yl = shard_rows(X, mesh), shard_rows(Y, mesh)
-        for counts in (deflate.launches, deflate.path_launches):
+        for counts in (deflate.launches, deflate.path_calls):
             for c in counts:
                 counts[c] = 0
         calls = {
@@ -2029,7 +2029,7 @@ def phase_parallel_rank(args) -> int:
             "train_step": lambda: train_step(Xl, Yl, PAR_A, parts, train, mesh=mesh),
         }
         res = {name: event_wall(fn) for name, fn in calls.items()}
-        result = {"launches": dict(deflate.launches), "path_launches": dict(deflate.path_launches)}
+        result = {"launches": dict(deflate.launches), "path_calls": dict(deflate.path_calls)}
         # timed again, warm, after the counts are read
         warm = {name: event_wall(fn)[1] for name, fn in calls.items()}
         if args.rank == 0:
@@ -2969,7 +2969,7 @@ def main() -> int:
     abs_err["jacobi_dominant"] = phase_eigen(eigen, dev, args.seed)
 
     # the main path's run starts here
-    for counts in (deflate.launches, deflate.path_launches, eigen.path_calls):
+    for counts in (deflate.launches, deflate.path_calls, eigen.path_calls):
         for k in counts:
             counts[k] = 0
     cli_walls = phase_cli(deflate, eigen)
@@ -2977,7 +2977,7 @@ def main() -> int:
     launches = dict(deflate.launches)  # ... and ends here
     eigen_calls = dict(eigen.path_calls)
     launches["jacobi_dominant"] = eigen_calls["kernel"]
-    print(f"main path launches: {launches}, by path {deflate.path_launches}; eigenvectors by "
+    print(f"main path launches: {launches}, by path {deflate.path_calls}; eigenvectors by "
           f"path {eigen_calls}; cli walls {cli_walls}; 20-component fit walls {fit_walls}")
     check(launches["deflate_f32"] > 0 and launches["deflate_bf16"] > 0,
           "a kernel of the path never launched")
@@ -2988,12 +2988,12 @@ def main() -> int:
     gain = times.pop("gain")
     times.update(eigen_timing(eigen, dev, args.seed))
 
-    for counts in (deflate.launches, deflate.path_launches):  # the wide fit's run starts here
+    for counts in (deflate.launches, deflate.path_calls):  # the wide fit's run starts here
         for k in counts:
             counts[k] = 0
     wide_out = phase_wide_fit(dev, args.seed, gain)
     wide_launches = dict(deflate.launches)  # ... and ends here
-    print(f"wide fit launches: {wide_launches}, by path {deflate.path_launches}; "
+    print(f"wide fit launches: {wide_launches}, by path {deflate.path_calls}; "
           f"{json.dumps(wide_out)}")
     check(wide_launches["deflate_f32_cluster"] == 80 and wide_launches["deflate_bf16_cluster"]
           == 80 and wide_launches["deflate_f32"] == wide_launches["deflate_bf16"] == 0,

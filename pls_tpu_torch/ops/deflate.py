@@ -51,8 +51,9 @@ kernel's row-tile policy (`_row_tile`, `pad_rows_to_tile`,
 `pallas_supported`) has no counterpart: the CUDA kernels mask the ragged
 last tile themselves and need no padding copy.
 
-`launches` counts, per kernel, the calls that launched it;
-`path_launches` counts them per path.
+`launches` counts, per kernel, the calls that launched it; `path_calls`
+counts the passes per path: each kernel launch under its plan's path, and
+"plain" for the two-product form the dispatcher takes (the CPU twin).
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ _CODES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}  # (dtype code, vector 
 PATHS = ("cols", "staged", "scalar", "cluster", "wide")
 launches = {"deflate_f32": 0, "deflate_bf16": 0, "deflate_f32_cluster": 0,
             "deflate_bf16_cluster": 0}
-path_launches = dict.fromkeys(PATHS, 0)
+path_calls = dict.fromkeys((*PATHS, "plain"), 0)
 
 # the column-owning design (csrc/deflate_common.cuh): rows of a tile each
 # thread reduces, most 4-column chunks a thread owns, row groups S, ring
@@ -403,7 +404,7 @@ def _launch(X: torch.Tensor, r: torch.Tensor, planner: Callable[..., Plan]):
                                        stream)
     _check(err, f"deflation kernel launch ({plan.path} path)")
     launches[kernel_name(X.dtype, plan.path)] += 1
-    path_launches[plan.path] += 1
+    path_calls[plan.path] += 1
     return t, tt, p
 
 
@@ -413,6 +414,7 @@ def deflate_pass(X: torch.Tensor, r: torch.Tensor):
     rows (a row-sharded fit's empty last shard) launches nothing: p and tt
     are zeros."""
     if X.device.type == "cpu" or X.dtype == torch.float64 or X.shape[0] == 0:
+        path_calls["plain"] += 1
         return deflate_pass_plain(X, r)
     return deflate_pass_cuda(X, r)
 

@@ -12,7 +12,13 @@ batch axis, which is how the CV folds' refits run together.
   host.  `torch.linalg.eigh` on CUDA reads cuSOLVER's `info` back, so each
   call drained the stream once a component;
 - anything else, the CPU among it: `torch.linalg.eigh` ("eigh"; ascending
-  eigenvalues, dominant last).
+  eigenvalues, dominant last).  On CUDA it solves C widened to float64, as
+  the kernel does, and rounds the vector to C's dtype: at M = 33 in the
+  pan-cancer PLS-DA cell (10 267 × 20 531, A = 32) cuSOLVER's float32
+  solve left the vector 1.7-2.7e-6 from float64's, which late components,
+  whose XYᵀXY is deflated far below its first size, carried into B; in
+  float64 the call is also the faster (0.23 against 0.32 ms on an H100).
+  The CPU solves in C's own dtype.
 
 `path_calls` counts the calls of each path; the kernel's, its launches
 (in `jacobi_dominant_cuda`, once a launch returned without error).
@@ -52,15 +58,17 @@ def dominant_eigenvector(C: torch.Tensor, power_iters: int | None = None) -> tor
     """Dominant eigenvector of symmetric PSD C (..., M, M) -> (..., M).
 
     power_iters=None selects the exact eigenvector: the Jacobi kernel for
-    float32/float64 C on CUDA with M ≤ 32, `eigh` otherwise; an integer
-    selects that many power-method iterations from a deterministic start
-    vector: the column of C with the largest diagonal, plus 1e-30 so a
-    zero column cannot stall."""
+    float32/float64 C on CUDA with M ≤ 32, `eigh` otherwise (in float64 on
+    CUDA); an integer selects that many power-method iterations from a
+    deterministic start vector: the column of C with the largest diagonal,
+    plus 1e-30 so a zero column cannot stall."""
     with span("pls.fit.eigh"):
         if power_iters is None:
             if C.is_cuda and C.dtype in KERNEL_DTYPES and 1 <= C.shape[-1] <= KERNEL_MAX_M:
                 return jacobi_dominant_cuda(C.contiguous())
             path_calls["eigh"] += 1
+            if C.is_cuda:
+                return torch.linalg.eigh(C.double()).eigenvectors[..., -1].to(C.dtype)
             return torch.linalg.eigh(C).eigenvectors[..., -1]
         path_calls["power"] += 1
         j = torch.diagonal(C, dim1=-2, dim2=-1).argmax(-1)

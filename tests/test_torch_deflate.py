@@ -117,6 +117,19 @@ def test_cpu_tensor_takes_plain_version_and_counts_nothing():
     assert deflate.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_path_calls_count_the_plain_form(dtype):
+    # the dispatcher's two-product form counts as "plain", and no kernel path moves
+    X, r = _operands(20, 12, seed=4)
+    Xt = torch.from_numpy(X).to(dtype)
+    rt = torch.from_numpy(r).to(torch.float64 if dtype == torch.float64 else torch.float32)
+    before = dict(deflate.path_calls)
+    deflate.deflate_pass(Xt, rt)
+    deflate.deflate_pass_narrow(Xt, rt)
+    assert deflate.path_calls == {**before, "plain": before["plain"] + 2}
+    assert set(deflate.path_calls) == {*deflate.PATHS, "plain"}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
 def test_dispatcher_takes_plain_version_off_the_kernel(dtype):
     # a CPU tensor of any dtype, like float64 X on a card, never reaches the kernel
@@ -278,6 +291,7 @@ def test_one_pass_range_is_the_tpu_kernels():
     (torch.bfloat16, 256, 131_072, 8, 8, 2, 3),
     (torch.bfloat16, 128, 262_144, 8, 16, 2, 3),   # the widest bf16 K: clusters of 16
     (torch.float32, 1024, 30_001, 1, 2, 1, 3),     # ragged K: 4-byte staging
+    (torch.float32, 10_267, 20_531, 1, 2, 1, 5),   # TCGA's 20 531 genes (7² · 419): 4-byte
     (torch.bfloat16, 1024, 30_001, 1, 2, 2, 3),
 ])
 def test_cluster_plan(dtype, N, K, vec, C, R, stages):
@@ -504,9 +518,9 @@ def test_cuda_cols_path_matches_plain_and_f64(N, K):
     Xc = torch.from_numpy(X).float().cuda().to(torch.bfloat16)
     rc = torch.from_numpy(r).float().cuda()
     assert deflate.plan_for(Xc, rc).path == "cols"
-    before = deflate.path_launches["cols"]
+    before = deflate.path_calls["cols"]
     _kernel_vs_plain(Xc, rc)
-    assert deflate.path_launches["cols"] == before + 2
+    assert deflate.path_calls["cols"] == before + 2
     t, tt, p = deflate.deflate_pass(Xc, rc)
     Xd, rd = Xc.double(), rc.double()
     td = Xd @ rd
@@ -536,9 +550,9 @@ def test_cuda_cluster_path_matches_plain_and_two_pass(dtype, N, K):
     rc = torch.from_numpy(r).float().cuda()
     assert deflate.plan_for(Xc, rc).path == "cluster"
     assert deflate.staged_plan_for(Xc, rc).path == "wide"
-    before = deflate.path_launches["cluster"]
+    before = deflate.path_calls["cluster"]
     _kernel_vs_plain(Xc, rc)
-    assert deflate.path_launches["cluster"] == before + 2
+    assert deflate.path_calls["cluster"] == before + 2
     t, tt, p = deflate.deflate_pass(Xc, rc)
     tw, ttw, pw = deflate._launch(Xc, rc, deflate.staged_plan_for)
     tp, ttp, pp = deflate.deflate_pass_plain(Xc, rc)
@@ -567,6 +581,29 @@ def test_cuda_cluster_path_unaligned_x(dtype):
 
 
 @pytest.mark.gpu
+def test_cuda_cluster_path_vec1_at_the_pancan_shape():
+    # the pan-cancer cell's pass (10 267 tumours × 20 531 genes, f32): K is
+    # odd, so the cluster kernel stages 4-byte words in clusters of 2; held
+    # to float64 of the same X, relaunches bit-identical, counted as "cluster"
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    g = torch.Generator("cuda").manual_seed(14)
+    Xc = torch.randn((10_267, 20_531), generator=g, device="cuda")
+    rc = torch.randn(20_531, generator=g, device="cuda")
+    plan = deflate.plan_for(Xc, rc)
+    assert (plan.path, plan.vec, plan.C, plan.R) == ("cluster", 1, 2, 1)
+    before = deflate.path_calls["cluster"]
+    t, tt, p = deflate.deflate_pass(Xc, rc)
+    t2, tt2, p2 = deflate.deflate_pass(Xc, rc)
+    torch.cuda.synchronize()
+    assert deflate.path_calls["cluster"] == before + 2
+    assert torch.equal(t, t2) and torch.equal(p, p2) and torch.equal(tt, tt2)
+    td, ttd, pd = deflate.deflate_pass_plain(Xc.double(), rc.double())
+    assert _rel(t.cpu(), td.cpu()) < 1e-5 and _rel(p.cpu(), pd.cpu()) < 1e-5
+    assert abs(float(tt) - float(ttd)) / float(ttd) < 1e-5
+
+
+@pytest.mark.gpu
 def test_cuda_past_one_pass_range_is_two_pass():
     # past the cluster kernel's 262 144 columns: the two-pass form
     if not torch.cuda.is_available():
@@ -574,6 +611,6 @@ def test_cuda_past_one_pass_range_is_two_pass():
     X, r = _operands(64, 262_152, seed=13)
     Xc, rc = torch.from_numpy(X).float().cuda(), torch.from_numpy(r).float().cuda()
     assert deflate.plan_for(Xc, rc).path == "wide"
-    before = deflate.path_launches["wide"]
+    before = deflate.path_calls["wide"]
     _kernel_vs_plain(Xc, rc)
-    assert deflate.path_launches["wide"] == before + 2
+    assert deflate.path_calls["wide"] == before + 2
