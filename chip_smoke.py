@@ -73,8 +73,13 @@ Phases, each of which fails the run:
      turns (cluster, two-pass, two-pass, cluster; back to back), which it
      must beat at every shape, with the plain form, the library's two
      products, each one's share of the bound and the clusters × C against
-     the card's SMs; then (its launch counts set to 0 just before and read just
-     after) `models.kernel_pls.fit` at 20000×30000×10, A = 20, on the
+     the card's SMs; the pan-cancer cell's pass (PANCAN, f32: K odd, so
+     vec 1) beside K + 1 (vec 4, the same plan otherwise) and K + 1 from a
+     view one element into its storage (vec 1 at an even K), in turns,
+     back to back, each within KERNEL_RTOL of the plain form, with its
+     staging (`ops.deflate.staging_calls`) and share of the bound; then
+     (its launch counts set to 0 just before and read just after)
+     `models.kernel_pls.fit` at 20000×30000×10, A = 20, on the
      cluster path: f32 against float64 on the card (FIT_COEF_RTOL), bf16
      storage against f32 (BF16_COEF_RTOL), 80 launches of each cluster
      kernel and none of the others, the warm walls in turns beside 20 ×
@@ -238,6 +243,8 @@ main path's; each with bound_ms, the larger of its bytes over 3.35 TB/s
 and its flops over 67 TFLOP/s f32 (E1: its rotations' float64 flops
 over 34 TFLOP/s), and library_ms, E1's eigh; E1's plain_ms is null: its
 twin runs on the CPU) and {"ok": true, "device": {...}};
+the record also gives, under "k1_wide_staging", the pan-cancer pass's
+three forms of phase 5 (ms, bound_ms, share, vec, staging);
 the card's nvidia-smi line is printed in phase 1 and again just before
 the kernels' record.  Without a CUDA device,
 or outside a checkout of the repo, the script exits non-zero and prints
@@ -304,6 +311,9 @@ MAIN_PATH_SHAPES = [(10, 15), (60, 401), BIG, (10_000, 1_000), (BIG[0] // 2, BIG
 # phase 5's wide-K timing: one shape for each cluster size, 2, 4, 8 and 16
 # (8192×131072 the TPU kernel's widest one-pass f32 K), in f32 and bf16
 WIDE_TIMED = [WIDE, (8_192, 65_536), (8_192, 131_072), (4_096, 262_144)]
+# the pan-cancer cell's pass: 10 267 tumours × 20 531 genes, f32 (K odd: the
+# cluster kernel's vec-1 staging, clusters of 2)
+PANCAN = (10_267, 20_531)
 # K2's column-owning path: the sweep's shape, a ragged last tile, K = 8;
 # then a bf16 K past it (row-staged) and the K past the staged form: the
 # cluster path up to 262 144 columns (a ragged K on its 4-byte staging;
@@ -878,6 +888,46 @@ def phase_timing(deflate, dev, seed: int) -> dict:
     del X, Xb, dst
     torch.cuda.empty_cache()
     out.update(wide_timing(deflate, dev, g))
+    out["staging"] = pancan_timing(deflate, dev, g)
+    return out
+
+
+def pancan_timing(deflate, dev, g) -> dict:
+    """The cluster kernel at PANCAN's plan (C = 2, R = 1, 5 slots) in three
+    forms, in turns, back to back: vec 1 at PANCAN, vec 4 at K + 1 (its
+    16-byte staging), and vec 1 at K + 1 from a view one element into its
+    storage (the staging apart from K).  Returns {form: {ms, bound_ms,
+    share, vec, staging}}."""
+    N, K = PANCAN
+    buf = torch.randn(N * (K + 1) + 1, generator=g, device=dev)
+    forms = {"vec1": buf[:N * K].view(N, K), "vec4": buf[:N * (K + 1)].view(N, K + 1),
+             "vec1_offset": buf[1:].view(N, K + 1)}
+    rs = {k: torch.randn(X.shape[1], generator=g, device=dev) for k, X in forms.items()}
+    out, b2b = {}, {k: [] for k in forms}
+    for key, X in forms.items():
+        plan = deflate.plan_for(X, rs[key])
+        check((plan.path, plan.vec, plan.C, plan.R, plan.stages)
+              == ("cluster", 4 if key == "vec4" else 1, 2, 1, 5),
+              f"pancan {key} {tuple(X.shape)}: planned {plan}")
+        before = dict(deflate.staging_calls)
+        t, _, p = deflate.deflate_pass_cuda(X, rs[key])
+        staging = [k for k, v in deflate.staging_calls.items() if v != before[k]]
+        tp, _, pp = deflate.deflate_pass_plain(X, rs[key])
+        err = max(rel_err(t, tp), rel_err(p, pp))
+        check(err < KERNEL_RTOL, f"pancan {key}: {err:.3g} from the plain form")
+        out[key] = {"vec": plan.vec, "staging": staging[0] if staging else None}
+    for key in (*forms, *reversed(forms)):
+        b2b[key] += times_ms(lambda: deflate.deflate_pass_cuda(forms[key], rs[key]), reps=5,
+                             inner=10)
+    for key, X in forms.items():
+        b_ms = bound(*X.shape, 4)[0]
+        ms = statistics.median(b2b[key])
+        out[key].update(ms=ms, bound_ms=b_ms, share=b_ms / ms)
+        print(f"deflate_f32_cluster {key} {N}x{X.shape[1]} (vec {out[key]['vec']}, "
+              f"{out[key]['staging']}): {ms:.4f} ms back to back (spread {min(b2b[key]):.4f}-"
+              f"{max(b2b[key]):.4f}), bound {b_ms:.4f} ms, {b_ms / ms:.3f} of the bound")
+    del buf, forms
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2986,6 +3036,7 @@ def main() -> int:
 
     times = phase_timing(deflate, dev, args.seed)
     gain = times.pop("gain")
+    staging = times.pop("staging")
     times.update(eigen_timing(eigen, dev, args.seed))
 
     for counts in (deflate.launches, deflate.path_calls):  # the wide fit's run starts here
@@ -3093,7 +3144,7 @@ def main() -> int:
          "plain_ms": times[name][1], "bound_ms": times[name][3], "bound_by": times[name][4],
          "library_ms": times[name][2]}
         for name, source, replaces, counters in KERNELS
-    ]}))
+    ], "k1_wide_staging": staging}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -72,6 +72,8 @@
 // Interface: plain C, loaded with ctypes (pls_tpu_torch/ops/deflate.py).
 // Every launch goes on the caller's stream; nothing is allocated here.
 
+#include <type_traits>
+
 #include "deflate_common.cuh"
 
 namespace {
@@ -276,13 +278,24 @@ cudaError_t rows_limits(int* budget, int* sms) {
 //    registers for the whole pass, so the slices of r and p never touch
 //    device memory between tiles.
 //  - The CTA streams its slice of tiles of R rows (1, 2 or 4) into a ring
-//    of `stages` slots (2-8): one 1-D TMA bulk copy per row slice (V > 1),
-//    or, where K is not a multiple of the vector width or X is not 16-byte
-//    aligned (V == 1), 4-byte cp.async copies of the words that cover the
-//    slice, whose completion arrives on the same `full` mbarrier.  The slot
-//    of tile n - 1 is refilled with tile n - 1 + stages right after tile
-//    n's block barrier, when every thread of the CTA is past it, so the
-//    ring needs no `empty` barrier and stages - 1 tiles stay in flight.
+//    of `stages` slots (2-8): one 1-D TMA bulk copy per row slice (V > 1).
+//    Where K is not a multiple of the vector width or X is not 16-byte
+//    aligned (V == 1), a row slice is staged as if copied from the 16-byte
+//    boundary at or below its start: its 16-byte-aligned body by one bulk
+//    copy, and the few 4-byte words on each side of it (or, in a slice too
+//    short for a body, all its words) by cp.async from lanes of the last
+//    warp, whose completion arrives on the same `full` mbarrier.  The slot
+//    of tile n - 1 is refilled with tile n - 1 + stages after tile n's
+//    block barrier, when every thread of the CTA is past it, so the ring
+//    needs no `empty` barrier and stages - 1 tiles stay in flight.  With
+//    V == 1 the refill is issued after this CTA's partials of tᵢ are sent,
+//    and its words by a warp that sends none: the peers wait on those
+//    partials, and the refill's work in front of them cost about 0.1 ms
+//    of a 0.5 ms pass at 10 267 × 20 531 (PERF.md §6).
+//  - Each thread reduces chunks of 16 bytes of the staged slice (V
+//    columns; with V == 1, 16 / sizeof(T)).  A V == 1 row lies
+//    (a & 15) bytes into its slot; each shift has its own compiled loads,
+//    which take a chunk's 16 bytes from two aligned blocks.
 //  - tᵢ across the cluster: each CTA sums its threads' x_i[slice]·r[slice]
 //    in fixed order (warp shuffles, then warp order) and stores that
 //    partial into every peer's exchange buffer through distributed shared
@@ -376,9 +389,81 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 }
 
 // Bytes of one staged row slice: the slice's chunks, 16-byte aligned, and
-// with scalar staging one more 16 bytes for the words' shift.
+// with scalar staging one more 16 bytes for the slice's shift from the
+// 16-byte boundary its row is staged from.
 __host__ __device__ constexpr int64_t cluster_row_bytes(int64_t K, int C, int V, int itemsize) {
   return align16(((K / V + C - 1) / C) * V * itemsize) + (V == 1 ? 16 : 0);
+}
+
+// Scalar staging: a row slice's words of 4 bytes go one a lane of the last
+// warp, at most kClusterRowWords a row (a body's head and tail take at most
+// 4 each, bf16 rows starting 2-byte aligned; a slice with no body, under
+// 32 bytes, at most 8).
+constexpr int kClusterRowWords = 8;
+static_assert(kClusterRowWords * kClusterMaxRows == 32, "one lane of a warp a word");
+
+// Calls f(std::integral_constant<int, B>) for the byte shift b of a staged
+// row, B in [0, 16) by Step (sizeof(T)): each shift's loads compiled apart.
+// b is the same for every thread of the CTA.
+template <int Step, int B = 0, typename F>
+__device__ __forceinline__ void with_byte_shift(int b, F&& f) {
+  if constexpr (B + Step >= 16) {
+    f(std::integral_constant<int, B>{});
+  } else {
+    if (b == B) {
+      f(std::integral_constant<int, B>{});
+    } else {
+      with_byte_shift<Step, B + Step>(b, f);
+    }
+  }
+}
+
+// The 16 bytes at byte B of the staged row's 16-byte block q onwards, widened:
+// block q, and for B > 0 the rest from block q + 1 (bf16 rows at B % 4 == 2
+// by funnel shifts of the words).
+template <typename T, int B>
+__device__ __forceinline__ void load_at(const unsigned char* rowp, int q,
+                                        float (&x)[16 / sizeof(T)]) {
+  constexpr int W = 16 / sizeof(T);
+  const uint4* blk = reinterpret_cast<const uint4*>(rowp) + q;
+  const uint4 lo = blk[0];
+  if constexpr (B == 0) {
+    widen<T, W>(lo, x);
+  } else {
+    const uint4 hi = blk[1];
+    const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    constexpr int o = B / 4;
+    uint4 v;
+    if constexpr (B % 4 == 0) {
+      v = make_uint4(w[o], w[o + 1], w[o + 2], w[o + 3]);
+    } else {
+      v = make_uint4(__funnelshift_r(w[o], w[o + 1], 16),
+                     __funnelshift_r(w[o + 1], w[o + 2], 16),
+                     __funnelshift_r(w[o + 2], w[o + 3], 16),
+                     __funnelshift_r(w[o + 3], w[o + 4], 16));
+    }
+    widen<T, W>(v, x);
+  }
+}
+
+// How scalar staging copies the row slice of `len` bytes at `a` (the twin
+// of `cluster_row_pieces` in ops/deflate.py).  The slot's row starts at
+// align_down(a, 16), and each piece keeps its offset from there: the body
+// [b0, b1) = [align_up(a, 16), align_down(a + len, 16)) by one bulk copy,
+// `head` words from w0 = align_down(a, 4) and `tail` words from b1 by
+// cp.async; with no body (b1 <= b0) all `head` words from w0.
+struct RowPieces {
+  uintptr_t w0, b0, b1;
+  int head, tail;
+};
+
+__device__ __forceinline__ RowPieces row_pieces(uintptr_t a, int64_t len) {
+  const uintptr_t e = a + static_cast<uintptr_t>(len);
+  const uintptr_t w0 = a & ~uintptr_t(3), w1 = (e + 3) & ~uintptr_t(3);
+  const uintptr_t b0 = (a + 15) & ~uintptr_t(15), b1 = e & ~uintptr_t(15);
+  if (len == 0) return {w0, b0, b0, 0, 0};
+  if (b1 <= b0) return {w0, b0, b0, static_cast<int>((w1 - w0) / 4), 0};
+  return {w0, b0, b1, static_cast<int>((b0 - w0) / 4), static_cast<int>((w1 - b1) / 4)};
 }
 
 template <typename T, int V>
@@ -386,7 +471,8 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
 deflate_cluster(const T* __restrict__ X, const float* __restrict__ r, float* __restrict__ t,
                 float* __restrict__ partial, int64_t N, int64_t K, int R, int stages) {
   using Raw = typename Chunk<T, V>::Raw;
-  constexpr int MAXC = kClusterCols / V;  // most chunks a thread owns
+  constexpr int W = V > 1 ? V : 16 / static_cast<int>(sizeof(T));  // columns of a chunk
+  constexpr int MAXC = kClusterCols / W;  // most chunks a thread owns
   constexpr int NT = kClusterThreads;
   extern __shared__ __align__(128) unsigned char ring[];
   __shared__ __align__(8) uint64_t full[kClusterMaxStages];
@@ -404,13 +490,16 @@ deflate_cluster(const T* __restrict__ X, const float* __restrict__ r, float* __r
   const int64_t q0 = rank * sc_full;
   const int sc = static_cast<int>(KV - q0 < sc_full ? (KV - q0 > 0 ? KV - q0 : 0) : sc_full);
   const int64_t c0 = q0 * V;  // the slice's first column
-  const int cpt = (sc + NT - 1) / NT;
+  const int nq = V > 1 ? sc : (sc + W - 1) / W;  // its chunks (V == 1: the last may be short)
+  const int cpt = (nq + NT - 1) / NT;
   const int64_t row_bytes = cluster_row_bytes(K, C, V, sizeof(T));
   const int64_t slot_bytes = row_bytes * R;
   const int64_t n_tiles = (N + R - 1) / R;
 
   if (tid == 0) {
-    for (int s = 0; s < stages; ++s) mbar_init(&full[s], V > 1 ? 1 : NT);
+    // V == 1: the cp.async arrivals of the last warp's lanes, and thread 0's for the bulk copies
+    constexpr uint32_t arrivals = V > 1 ? 1 : kClusterRowWords * kClusterMaxRows + 1;
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], arrivals);
     mbar_init(&xbar[0], 1);
     mbar_init(&xbar[1], 1);
     mbar_fence_init();
@@ -433,43 +522,101 @@ deflate_cluster(const T* __restrict__ X, const float* __restrict__ r, float* __r
       }
     } else {
       const int64_t len = static_cast<int64_t>(sc) * sizeof(T);
-      for (int i = 0; i < rows; ++i) {
-        const uintptr_t a = reinterpret_cast<uintptr_t>(X + (row0 + i) * K + c0);
-        const uintptr_t w0 = a & ~uintptr_t(3);
-        const int64_t words = static_cast<int64_t>((a + len + 3 - w0) / 4);
-        const uint32_t* src = reinterpret_cast<const uint32_t*>(w0);
-        uint32_t* d = reinterpret_cast<uint32_t*>(dst + i * row_bytes);
-        for (int64_t w = tid; w < words; w += NT) cp_async4(d + w, src + w);
+      auto row_addr = [&](int i) {
+        return reinterpret_cast<uintptr_t>(X + (row0 + i) * K + c0);
+      };
+      // lane i·kClusterRowWords + k of the last warp: word k of row i's head, then of its tail
+      const int i = lane / kClusterRowWords, k = lane % kClusterRowWords;
+      if (warp == kClusterWarps - 1 && i < rows) {
+        const uintptr_t a = row_addr(i);
+        const RowPieces pc = row_pieces(a, len);
+        const uintptr_t w = k < pc.head ? pc.w0 + 4 * k
+                            : k - pc.head < pc.tail ? pc.b1 + 4 * (k - pc.head) : 0;
+        if (w) {
+          cp_async4(dst + i * row_bytes + (w - (a & ~uintptr_t(15))),
+                    reinterpret_cast<const void*>(w));
+        }
       }
-      cp_async_arrive(&full[slot]);
+      if (warp == kClusterWarps - 1) cp_async_arrive(&full[slot]);
+      if (tid == 0) {
+        uint32_t tx = 0;
+        for (int j = 0; j < rows; ++j) {
+          const RowPieces pc = row_pieces(row_addr(j), len);
+          tx += static_cast<uint32_t>(pc.b1 - pc.b0);
+        }
+        if (tx) {
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          mbar_expect_tx(&full[slot], tx);
+          for (int j = 0; j < rows; ++j) {
+            const uintptr_t a = row_addr(j);
+            const RowPieces pc = row_pieces(a, len);
+            if (pc.b1 > pc.b0) {
+              bulk_copy_g2s(dst + j * row_bytes + (pc.b0 - (a & ~uintptr_t(15))),
+                            reinterpret_cast<const void*>(pc.b0),
+                            static_cast<uint32_t>(pc.b1 - pc.b0), &full[slot]);
+            }
+          }
+        } else {
+          mbar_arrive(&full[slot]);
+        }
+      }
     }
   };
 
   // this thread's chunks q = tid + j·NT of the slice: r in registers, p accumulated there
-  float rv[MAXC][V], pa[MAXC][V];
+  float rv[MAXC][W], pa[MAXC][W];
 #pragma unroll
   for (int j = 0; j < MAXC; ++j) {
     const int q = tid + j * NT;
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      rv[j][e] = (j < cpt && q < sc) ? __ldg(r + c0 + static_cast<int64_t>(q) * V + e) : 0.f;
+    for (int e = 0; e < W; ++e) {
+      const bool in = j < cpt && q < nq && (V > 1 || q * W + e < sc);
+      rv[j][e] = in ? __ldg(r + c0 + static_cast<int64_t>(q) * W + e) : 0.f;
       pa[j][e] = 0.f;
     }
   }
-  // the element shift of a staged row (scalar staging: words from a 4-byte boundary)
-  auto shift_of = [&](int64_t row) -> int {
-    if constexpr (V > 1) {
-      return 0;
-    } else {
-      return static_cast<int>((reinterpret_cast<uintptr_t>(X + row * K + c0) & 3) / sizeof(T));
-    }
+  // chunk q of a row staged by 16-byte copies (V > 1)
+  auto chunk = [&](const unsigned char* rowp, int q, auto& x) {
+    widen<T, V>(*reinterpret_cast<const Raw*>(rowp + static_cast<int64_t>(q) * 16), x);
   };
-  auto chunk = [&](const unsigned char* rowp, int shift, int q, float (&x)[V]) {
-    if constexpr (V > 1) {
-      widen<T, V>(*reinterpret_cast<const Raw*>(rowp + static_cast<int64_t>(q) * 16), x);
-    } else {
-      widen<T, 1>(reinterpret_cast<const T*>(rowp)[shift + q], x);
-    }
+  // V == 1: f(B) with B the byte shift of a staged row from its 16-byte boundary
+  auto at_shift = [&](int64_t row, auto&& f) {
+    const int b = static_cast<int>(reinterpret_cast<uintptr_t>(X + row * K + c0) & 15);
+    with_byte_shift<static_cast<int>(sizeof(T))>(b, f);
+  };
+  // V == 1: acc += x_i[slice]·r[slice] of the row staged at rowp
+  auto split_dot = [&](const unsigned char* rowp, int64_t row, float (&acc)[W]) {
+    at_shift(row, [&](auto B) {
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) {
+        const int q = tid + j * NT;
+        if (j < cpt && q < nq) {
+          float x[W];
+          load_at<T, decltype(B)::value>(rowp, q, x);
+          if (q * W + W > sc) {  // a short last chunk: none of the next columns' bytes
+#pragma unroll
+            for (int e = 0; e < W; ++e) x[e] = q * W + e < sc ? x[e] : 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < W; ++e) acc[e] = fmaf(x[e], rv[j][e], acc[e]);
+        }
+      }
+    });
+  };
+  // V == 1: p[slice] += x_i[slice]·tᵢ of the row staged at rowp
+  auto split_axpy = [&](const unsigned char* rowp, int64_t row, float ti) {
+    at_shift(row, [&](auto B) {
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) {
+        const int q = tid + j * NT;
+        if (j < cpt && q < nq) {
+          float x[W];
+          load_at<T, decltype(B)::value>(rowp, q, x);
+#pragma unroll
+          for (int e = 0; e < W; ++e) pa[j][e] = fmaf(x[e], ti, pa[j][e]);
+        }
+      }
+    });
   };
 
   const int64_t mine = g < n_tiles ? (n_tiles - g + G - 1) / G : 0;  // this cluster's tiles
@@ -485,21 +632,22 @@ deflate_cluster(const T* __restrict__ X, const float* __restrict__ r, float* __r
     if (tid == 0) mbar_expect_tx(&xbar[n & 1], static_cast<uint32_t>(C * R * 4));
     mbar_wait(&full[slot], (n / stages) & 1);
 
-    // x_i[slice]·r[slice] of the staged rows: V chains a thread, then the warp
+    // x_i[slice]·r[slice] of the staged rows: W chains a thread, then the warp
     float d[kClusterMaxRows];
 #pragma unroll
     for (int i = 0; i < kClusterMaxRows; ++i) {
-      float acc[V];
+      float acc[W];
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc[e] = 0.f;
-      if (i < rows) {
-        const int shift = shift_of(row0 + i);
+      for (int e = 0; e < W; ++e) acc[e] = 0.f;
+      if constexpr (V == 1) {
+        if (i < rows) split_dot(st + i * row_bytes, row0 + i, acc);
+      } else if (i < rows) {
 #pragma unroll
         for (int j = 0; j < MAXC; ++j) {
           const int q = tid + j * NT;
           if (j < cpt && q < sc) {
             float x[V];
-            chunk(st + i * row_bytes, shift, q, x);
+            chunk(st + i * row_bytes, q, x);
 #pragma unroll
             for (int e = 0; e < V; ++e) acc[e] = fmaf(x[e], rv[j][e], acc[e]);
           }
@@ -507,7 +655,7 @@ deflate_cluster(const T* __restrict__ X, const float* __restrict__ r, float* __r
       }
       d[i] = 0.f;
 #pragma unroll
-      for (int e = 0; e < V; ++e) d[i] += acc[e];
+      for (int e = 0; e < W; ++e) d[i] += acc[e];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) d[i] += __shfl_xor_sync(0xffffffffu, d[i], off);
     }
@@ -517,9 +665,13 @@ deflate_cluster(const T* __restrict__ X, const float* __restrict__ r, float* __r
     }
     __syncthreads();
     // every thread is past tile n - 1: its slot takes tile n - 1 + stages
-    if (n > 0 && tile - G + static_cast<int64_t>(stages) * G < n_tiles) {
-      fill(tile - G + static_cast<int64_t>(stages) * G, (n - 1) % stages);
-    }
+    // (V == 1: once this CTA's partials are sent, below)
+    auto refill = [&] {
+      if (n > 0 && tile - G + static_cast<int64_t>(stages) * G < n_tiles) {
+        fill(tile - G + static_cast<int64_t>(stages) * G, (n - 1) % stages);
+      }
+    };
+    if constexpr (V > 1) refill();
     // the CTA's partial of row i, in warp order, into every peer's exchange
     // buffer: thread i·C + c stores it to rank c, completing on its xbar.
     // Every lane of a warp has read red before any lane stores: a
@@ -534,6 +686,7 @@ deflate_cluster(const T* __restrict__ X, const float* __restrict__ r, float* __r
     if (tid < R * C) {
       st_async_peer(&xp[rank][tid / C], &xbar[n & 1], static_cast<uint32_t>(tid % C), s);
     }
+    if constexpr (V == 1) refill();
     mbar_wait_cluster(&xbar[n & 1], (n >> 1) & 1);
 
     // tᵢ: the C partials in rank order; then p[slice] += x_i[slice]·tᵢ
@@ -543,15 +696,18 @@ deflate_cluster(const T* __restrict__ X, const float* __restrict__ r, float* __r
         float ti = 0.f;
         for (int c = 0; c < C; ++c) ti += xp[c][i];
         if (rank == 0 && tid == i) t[row0 + i] = ti;
-        const int shift = shift_of(row0 + i);
+        if constexpr (V == 1) {
+          split_axpy(st + i * row_bytes, row0 + i, ti);
+        } else {
 #pragma unroll
-        for (int j = 0; j < MAXC; ++j) {
-          const int q = tid + j * NT;
-          if (j < cpt && q < sc) {
-            float x[V];
-            chunk(st + i * row_bytes, shift, q, x);
+          for (int j = 0; j < MAXC; ++j) {
+            const int q = tid + j * NT;
+            if (j < cpt && q < sc) {
+              float x[V];
+              chunk(st + i * row_bytes, q, x);
 #pragma unroll
-            for (int e = 0; e < V; ++e) pa[j][e] = fmaf(x[e], ti, pa[j][e]);
+              for (int e = 0; e < V; ++e) pa[j][e] = fmaf(x[e], ti, pa[j][e]);
+            }
           }
         }
       }
@@ -562,9 +718,11 @@ deflate_cluster(const T* __restrict__ X, const float* __restrict__ r, float* __r
 #pragma unroll
   for (int j = 0; j < MAXC; ++j) {
     const int q = tid + j * NT;
-    if (j < cpt && q < sc) {
+    if (j < cpt && q < nq) {
 #pragma unroll
-      for (int e = 0; e < V; ++e) out[static_cast<int64_t>(q) * V + e] = pa[j][e];
+      for (int e = 0; e < W; ++e) {
+        if (V > 1 || q * W + e < sc) out[static_cast<int64_t>(q) * W + e] = pa[j][e];
+      }
     }
   }
   cluster_sync();  // no CTA leaves while a peer may still address its shared memory

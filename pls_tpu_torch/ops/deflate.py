@@ -32,8 +32,10 @@ alone, which comparisons launch beside the cols and cluster paths through
   cluster of C CTAs (2, 4, 8 or 16, the smallest whose threads can hold a
   column slice's r and p in registers) shares every row, each CTA one
   column slice streamed by TMA bulk copies (X 16-byte aligned, K a
-  multiple of the vector width) or 4-byte cp.async copies (otherwise); tᵢ
-  is summed across the cluster through distributed shared memory;
+  multiple of the vector width; otherwise, vec 1, each row slice's
+  16-byte-aligned body by one bulk copy and the few 4-byte words at its
+  two edges by cp.async, `cluster_row_pieces`); tᵢ is summed across the
+  cluster through distributed shared memory;
 - "wide": where the cluster kernel cannot take the shape (K past
   16 CTAs × 512 threads × 32 columns = 262 144, or a cluster size the
   device cannot launch), a two-pass form (t by rows, then p by column
@@ -53,7 +55,10 @@ last tile themselves and need no padding copy.
 
 `launches` counts, per kernel, the calls that launched it; `path_calls`
 counts the passes per path: each kernel launch under its plan's path, and
-"plain" for the two-product form the dispatcher takes (the CPU twin).
+"plain" for the two-product form the dispatcher takes (the CPU twin);
+`staging_calls` counts the cluster passes by how their rows were staged:
+"bulk" (vec > 1), "split" (vec 1, at least one row slice's body by bulk
+copy) and "words" (vec 1, every slice too short for a body).
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ PATHS = ("cols", "staged", "scalar", "cluster", "wide")
 launches = {"deflate_f32": 0, "deflate_bf16": 0, "deflate_f32_cluster": 0,
             "deflate_bf16_cluster": 0}
 path_calls = dict.fromkeys((*PATHS, "plain"), 0)
+staging_calls = {"bulk": 0, "split": 0, "words": 0}
 
 # the column-owning design (csrc/deflate_common.cuh): rows of a tile each
 # thread reduces, most 4-column chunks a thread owns, row groups S, ring
@@ -88,6 +94,7 @@ CLUSTER_THREADS = 512
 CLUSTER_COLS = 32
 CLUSTER_ROWS = (4, 2, 1)
 CLUSTER_MIN_STAGES, CLUSTER_MAX_STAGES = 3, 8
+CLUSTER_ROW_WORDS = 8  # most 4-byte words of a row slice with vec 1: a lane each
 
 
 @dataclass(frozen=True)
@@ -177,8 +184,64 @@ def staged_smem(K: int, R: int, itemsize: int) -> int:
 def cluster_row_bytes(K: int, C: int, vec: int, itemsize: int) -> int:
     """Shared memory of one staged row slice in the cluster kernel: the
     slice's chunks, 16-byte aligned, and with scalar staging 16 bytes more
-    for the copied words' shift (`cluster_row_bytes` in csrc/deflate.cu)."""
+    for the slice's shift from the 16-byte boundary its row is staged from
+    (`cluster_row_pieces`; `cluster_row_bytes` in csrc/deflate.cu)."""
     return _cdiv(_cdiv(K // vec, C) * vec * itemsize, 16) * 16 + (16 if vec == 1 else 0)
+
+
+@dataclass(frozen=True)
+class RowPieces:
+    """How the cluster kernel with vec 1 stages one row slice: `head` 4-byte
+    words from `align_down(addr, 4)`, the body of `body_bytes` (a multiple
+    of 16, 0 for none) from `body` (16-byte aligned) by one bulk copy, then
+    `tail` words from its end.  The slot's row starts at
+    `align_down(addr, 16)`, so every piece keeps its offset from there and
+    the slice's first element lies `shift` elements in."""
+
+    head: int
+    body: int
+    body_bytes: int
+    tail: int
+    shift: int
+
+
+def cluster_row_pieces(addr: int, length: int, itemsize: int) -> RowPieces:
+    """The pieces of the row slice of `length` bytes at `addr` (the plain
+    twin of `row_pieces` in csrc/deflate.cu): the body from
+    `align_up(addr, 16)` to `align_down(addr + length, 16)`, and the words
+    on each side of it; a slice with no such body (or none of it) takes its
+    words alone, all as `head`.  No words for an empty slice."""
+    end = addr + length
+    w0, w1 = addr & ~3, (end + 3) & ~3
+    b0, b1 = (addr + 15) & ~15, end & ~15
+    shift = (addr & 15) // itemsize
+    if length == 0:
+        return RowPieces(0, b0, 0, 0, shift)
+    if b1 <= b0:
+        return RowPieces((w1 - w0) // 4, b0, 0, 0, shift)
+    return RowPieces((b0 - w0) // 4, b0, b1 - b0, (w1 - b1) // 4, shift)
+
+
+@functools.lru_cache(maxsize=64)
+def _staging(residue: int, rows: int, K: int, C: int, itemsize: int) -> str:
+    sc_full = _cdiv(K, C)
+    for rank in range(C):
+        length = max(0, min(sc_full, K - rank * sc_full)) * itemsize
+        for i in range(rows):
+            addr = residue + (i * K + rank * sc_full) * itemsize
+            if cluster_row_pieces(addr, length, itemsize).body_bytes:
+                return "split"
+    return "words"
+
+
+def cluster_staging(addr: int, N: int, K: int, C: int, vec: int, itemsize: int) -> str:
+    """How a cluster pass over X (N, K) at `addr` in clusters of C stages
+    its rows: "bulk" with vec > 1; with vec 1 "split" where some row slice
+    has a body for one bulk copy (`cluster_row_pieces`), else "words".  A
+    row's address mod 16 repeats within 8 rows, so 8 rows tell."""
+    if vec > 1:
+        return "bulk"
+    return _staging(addr % 16, min(N, 8), K, C, itemsize)
 
 
 def cluster_plans(dtype: torch.dtype, N: int, K: int, x_aligned: bool,
@@ -405,6 +468,9 @@ def _launch(X: torch.Tensor, r: torch.Tensor, planner: Callable[..., Plan]):
     _check(err, f"deflation kernel launch ({plan.path} path)")
     launches[kernel_name(X.dtype, plan.path)] += 1
     path_calls[plan.path] += 1
+    if plan.path == "cluster":
+        staging_calls[cluster_staging(X.data_ptr(), N, K, plan.C, plan.vec,
+                                      X.element_size())] += 1
     return t, tt, p
 
 

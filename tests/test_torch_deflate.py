@@ -20,11 +20,15 @@ column-owning design or for the staged form, the cluster size at wide K
 (and every plan of the cluster kernel the timing sweep launches), K past
 the cluster kernel's 262 144 columns, and a ragged last tile; so is the
 row-staged design's own plan (`staged_plan`), which comparisons launch
-beside the cols and cluster paths.  The plain twin is held to the TPU
-kernel at wide K too (up to 131 072 columns), and a float64 fit at a wide
-K to the JAX package's fit.  So is the rule that the port runs on the card unless
-asked for the CPU: without a card `default_device()` raises, and the CLI
-and the `.npy` entry points refuse to run unless given the CPU.
+beside the cols and cluster paths.  So are the pieces the cluster kernel
+stages a vec-1 row slice in (`cluster_row_pieces`: the words at its two
+edges and its 16-byte-aligned body) at every start mod 16, f32 and bf16,
+and the staging each pass is counted under (`cluster_staging`).  The
+plain twin is held to the TPU kernel at wide K too (up to 131 072
+columns), and a float64 fit at a wide K to the JAX package's fit.  So is
+the rule that the port runs on the card unless asked for the CPU: without
+a card `default_device()` raises, and the CLI and the `.npy` entry points
+refuse to run unless given the CPU.
 
 The CUDA kernel itself runs only on a card: those cases are marked `gpu`
 and skip here.  On the card they hold the kernel against the plain version
@@ -32,9 +36,13 @@ on the same inputs (1e-5 relative) at the CPU shapes, at K too wide for
 the staged form, and with an r that is not 16-byte aligned; K2's
 column-owning path against the plain version and float64 of the
 bf16-rounded X at 4096×5000, 65536×2048, a ragged 4099×5000 and K = 8
-(1e-5 relative, bit-identical relaunches); and the cluster path against
+(1e-5 relative, bit-identical relaunches); the cluster path against
 the plain version and the two-pass form at wide K (1e-5 relative,
-bit-identical relaunches, counted on the cluster path).
+bit-identical relaunches, counted on the cluster path); and its vec-1
+staging against float64 at ragged K, in bf16, from X one and two elements
+into its storage, at one row and in forced plans whose slices are too
+short for a body (1e-5 relative, bit-identical relaunches, counted by
+`staging_calls`).
 """
 
 import contextlib
@@ -366,6 +374,55 @@ def test_cluster_plans_enumerate_what_the_kernel_holds(dtype, N, K, x_aligned, s
     assert deflate.cluster_plan(dtype, N, K, x_aligned, H100.__getitem__) == first
 
 
+# the cluster kernel's 4-byte staging (vec 1): every start of a row slice mod
+# 16 (f32 rows start 4-byte aligned, bf16 2-byte), lengths 0-40 bytes and
+# the pan-cancer cell's rank-1 slice (10 266 genes of 20 531, f32)
+ROW_PIECES = [(itemsize, residue, length) for itemsize in (4, 2)
+              for residue in range(0, 16, itemsize)
+              for length in (*range(0, 41, itemsize), 41_064)]
+
+
+@pytest.mark.parametrize("itemsize,residue,length", ROW_PIECES)
+def test_cluster_row_pieces(itemsize, residue, length):
+    addr = 0x7F00_0000_0000 + residue
+    pc = deflate.cluster_row_pieces(addr, length, itemsize)
+    base = addr & ~15
+    # the pieces cover exactly the words of [addr, addr + length), each once
+    words = [(addr & ~3) + 4 * k for k in range(pc.head)]
+    words += range(pc.body, pc.body + pc.body_bytes, 4)
+    words += [pc.body + pc.body_bytes + 4 * k for k in range(pc.tail)]
+    end = (addr + length + 3) & ~3
+    assert words == list(range(addr & ~3, end if length else addr & ~3, 4))
+    # the body: 16-byte aligned in device memory, in the slot's row, in size
+    assert pc.body % 16 == 0 and (pc.body - base) % 16 == 0 and pc.body_bytes % 16 == 0
+    if pc.body_bytes:
+        assert pc.body == (addr + 15) & ~15 and pc.body + pc.body_bytes == (addr + length) & ~15
+        assert pc.head <= 16 // 4 - (itemsize == 4) and pc.tail <= 16 // 4 - (itemsize == 4)
+    else:
+        assert pc.tail == 0 and (addr + length) & ~15 <= (addr + 15) & ~15 or length == 0
+    assert pc.head + pc.tail <= deflate.CLUSTER_ROW_WORDS
+    # the slot's row starts at the 16-byte boundary: the shift and every
+    # copied byte fit the row slice's shared memory (2n columns in clusters of 2)
+    assert pc.shift * itemsize == addr - base
+    n = length // itemsize
+    assert end - base <= deflate.cluster_row_bytes(2 * n, 2, 1, itemsize)
+
+
+def test_cluster_staging_by_what_the_rows_hold():
+    # the pan-cancer pass: K odd, vec 1, every rank's slice takes a body
+    assert deflate.cluster_staging(0, 10_267, 20_531, 2, 1, 4) == "split"
+    assert deflate.cluster_staging(4, 300, 30_000, 2, 1, 4) == "split"  # one element in
+    assert deflate.cluster_staging(2, 1024, 30_001, 2, 1, 2) == "split"
+    assert deflate.cluster_staging(0, 2048, 30_000, 2, 4, 4) == "bulk"
+    # slices of 3 f32 (12 bytes) or 6 bf16 never hold an aligned 16 bytes
+    for addr in range(0, 16, 4):
+        assert deflate.cluster_staging(addr, 64, 40, 16, 1, 4) == "words"
+    assert deflate.cluster_staging(2, 64, 41, 8, 1, 2) == "words"
+    # 7 f32 (28 bytes) hold one on some rows only
+    assert deflate.cluster_staging(0, 1, 14, 2, 1, 4) == "split"
+    assert set(deflate.staging_calls) == {"bulk", "split", "words"}
+
+
 def test_kernel_names_per_path():
     assert deflate.kernel_name(torch.float32) == "deflate_f32"
     assert deflate.kernel_name(torch.bfloat16, "cols") == "deflate_bf16"
@@ -597,6 +654,62 @@ def test_cuda_cluster_path_vec1_at_the_pancan_shape():
     t2, tt2, p2 = deflate.deflate_pass(Xc, rc)
     torch.cuda.synchronize()
     assert deflate.path_calls["cluster"] == before + 2
+    assert torch.equal(t, t2) and torch.equal(p, p2) and torch.equal(tt, tt2)
+    td, ttd, pd = deflate.deflate_pass_plain(Xc.double(), rc.double())
+    assert _rel(t.cpu(), td.cpu()) < 1e-5 and _rel(p.cpu(), pd.cpu()) < 1e-5
+    assert abs(float(tt) - float(ttd)) / float(ttd) < 1e-5
+
+
+# the cluster kernel's vec-1 staging on the card: (dtype, N, K, elements
+# X lies into its storage, the forced plan's (C, R) or None for the
+# planner's, the staging counted)
+VEC1_STAGING = [
+    (torch.float32, 1024, 30_001, 0, None, "split"),    # ragged K
+    (torch.float32, 2000, 20_531, 0, None, "split"),    # the pan-cancer cell's K
+    (torch.bfloat16, 1024, 30_001, 0, None, "split"),   # bf16, K % 8 != 0
+    (torch.bfloat16, 700, 30_004, 0, None, "split"),    # bf16, K % 8 == 4
+    (torch.float32, 300, 30_000, 1, None, "split"),     # X one element in
+    (torch.float32, 300, 30_000, 2, None, "split"),     # ... and two
+    (torch.bfloat16, 300, 30_000, 1, None, "split"),
+    (torch.bfloat16, 300, 30_000, 2, None, "split"),
+    (torch.float32, 1, 30_001, 0, None, "split"),       # one row
+    (torch.float32, 1, 131_073, 0, None, "split"),      # clusters of 16, one row
+    (torch.float32, 37, 45, 0, (2, 4), "split"),        # 4-row tiles, the last ragged
+    (torch.float32, 64, 40, 0, (16, 1), "words"),       # 3, 1 and 0 columns a CTA
+    (torch.float32, 1, 40, 1, (16, 1), "words"),
+    (torch.bfloat16, 50, 41, 0, (8, 2), "words"),       # 6 bf16 (12 bytes) a CTA
+    (torch.float32, 33, 14, 0, (2, 4), "split"),        # 28 bytes: a body on some rows
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,N,K,offset,forced,staging", VEC1_STAGING)
+def test_cuda_cluster_path_vec1_staging(dtype, N, K, offset, forced, staging):
+    # held to float64 of the same (bf16-rounded) X at 1e-5, relaunches
+    # bit-identical, each launch counted on the cluster path by its staging
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    X, r = _operands(N, K, seed=15)
+    buf = torch.zeros(N * K + offset, dtype=dtype, device="cuda")
+    buf[offset:] = torch.from_numpy(X).float().cuda().to(dtype).reshape(-1)
+    Xc, rc = buf[offset:].view(N, K), torch.from_numpy(r).float().cuda()
+    planner = deflate.plan_for
+    if forced is not None:
+        C, R = forced
+        lim = deflate._limits(Xc.device.index, deflate._CODES[dtype][0], 1)
+        resident = lim.clusters[deflate.CLUSTER_SIZES.index(C)]
+        assert resident > 0
+        plan = deflate.Plan("cluster", 1, min(resident, -(-N // R)), R, 0, 3, C)
+        planner = lambda X, r: plan  # noqa: E731
+    plan = planner(Xc, rc)
+    assert (plan.path, plan.vec) == ("cluster", 1)
+    assert deflate.cluster_staging(Xc.data_ptr(), N, K, plan.C, 1, Xc.element_size()) == staging
+    calls, stagings = deflate.path_calls["cluster"], dict(deflate.staging_calls)
+    t, tt, p = deflate._launch(Xc, rc, planner)
+    t2, tt2, p2 = deflate._launch(Xc, rc, planner)
+    torch.cuda.synchronize()
+    assert deflate.path_calls["cluster"] == calls + 2
+    assert deflate.staging_calls == {**stagings, staging: stagings[staging] + 2}
     assert torch.equal(t, t2) and torch.equal(p, p2) and torch.equal(tt, tt2)
     td, ttd, pd = deflate.deflate_pass_plain(Xc.double(), rc.double())
     assert _rel(t.cpu(), td.cpu()) < 1e-5 and _rel(p.cpu(), pd.cpu()) < 1e-5

@@ -104,8 +104,8 @@ def test_held_out_types_are_mostly_told_apart_at_the_cut():
 @pytest.mark.gpu
 def test_the_cell_s_fit_on_the_card_matches_the_reference():
     # the timed job at the configuration's shape: 32 passes on the cluster
-    # path (vec 1, clusters of 2), 32 eigenvectors by eigh, within the
-    # cell's limits of the float64 reference
+    # path (vec 1, clusters of 2, "split" staging), 32 eigenvectors by
+    # eigh, within the cell's limits of the float64 reference
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the cell's shape on the card")
     dev = torch.device("cuda", 0)
@@ -113,9 +113,12 @@ def test_the_cell_s_fit_on_the_card_matches_the_reference():
     X, y, X_new, _ = expression.library(CONFIG, 2000, 2**31 + 21, dev)
     assert X.shape == (10_267, 20_531)
     paths, eigs = dict(deflate.path_calls), dict(eigen.path_calls)
+    stagings = dict(deflate.staging_calls)
     clf = PLSDAClassifier(n_components=A, device=dev).fit(X, y.cpu().numpy())
     torch.cuda.synchronize()
     assert deflate.path_calls == {**paths, "cluster": paths["cluster"] + A}
+    # K odd: every row slice's aligned body by one bulk copy, its edges by words
+    assert deflate.staging_calls == {**stagings, "split": stagings["split"] + A}
     assert eigen.path_calls == {**eigs, "eigh": eigs["eigh"] + A}
     Xz = clf._scale_x(X)
     plan = deflate.plan_for(Xz, torch.zeros(X.shape[1], device=dev))
