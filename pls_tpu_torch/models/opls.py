@@ -13,6 +13,25 @@ then an ordinary PLS fit (`kernel_pls.fit`: K1 on float32 X on the card
 for kernel type 1) on the filtered X.  New data goes through the same
 filter, component by component, before the predictive model.  The JAX
 package's two `lax.scan`s (the filter, `correct`) are Python loops.
+
+Spans (`utils.profiling`): `pls.opls.filter` around the filter of a fit,
+`pls.opls.filter.component` around one orthogonal component (its
+eigenvector's `pls.fit.eigh` and the rank-1 update of X included),
+`pls.opls.correct` around the filter applied to given data.
+
+`x_elements` counts, by operation ("filter": `_ortho_filter_fit`;
+"correct": `correct`), the elements of the X-shaped (N, K) tensors that
+each step reads or writes, from the shapes alone (no read of the device):
+- a product with X or Xᵀ (XᵀY, X w, Xᵀt, X w_o, Xᵀt_o; `correct`'s
+  X w_o): one read of X;
+- `torch.outer(t_o, p_o)`: one write of an X-sized temporary;
+- `Xc - outer`: two reads (Xc and the temporary) and one write (the new
+  Xc);
+- `ssx_total = (X * X).sum()`: three (X read, its square written, then
+  read by the sum).
+So a filter of n_ortho components counts (9 n_ortho + 3)·N·K, and
+`correct` of n rows 5 n_ortho·n·K.  A change that fuses or removes a pass
+keeps this tally true.
 """
 
 from __future__ import annotations
@@ -25,6 +44,9 @@ from pls_tpu_torch.models.kernel_pls import _prec_ctx, fit
 from pls_tpu_torch.models.predict import _promote, fitted_values
 from pls_tpu_torch.ops.eigen import dominant_eigenvector
 from pls_tpu_torch.types import METHOD, PLSFit
+from pls_tpu_torch.utils.profiling import span
+
+x_elements = {"filter": 0, "correct": 0}
 
 
 @dataclass(frozen=True)
@@ -51,26 +73,37 @@ def _predictive_weight(X, Y, power_iters, M):
     return w / torch.sqrt(w @ w)
 
 
+def _remove(Xc, t_o, p_o, op):
+    """Xc − t_o p_oᵀ, tallied under `op` in `x_elements`: the outer
+    product's write, then the subtraction's two reads and one write."""
+    x_elements[op] += 4 * Xc.numel()
+    return Xc - torch.outer(t_o, p_o)
+
+
 def _ortho_filter_fit(X, Y, n_ortho, power_iters, precision):
     N, K = X.shape
     M = Y.shape[1]
-    ssx_total = (X * X).sum()
-    Ws, Ps, Ts, r2x = [], [], [], []
-    with _prec_ctx(precision):
-        Xc = X
-        for _ in range(n_ortho):
-            w = _predictive_weight(Xc, Y, power_iters, M)
-            t = Xc @ w
-            p = (Xc.T @ t) / (t @ t)
-            w_o = p - (w @ p) * w
-            w_o = w_o / torch.sqrt(w_o @ w_o)
-            t_o = Xc @ w_o
-            p_o = (Xc.T @ t_o) / (t_o @ t_o)
-            Xc = Xc - torch.outer(t_o, p_o)
-            Ws.append(w_o)
-            Ps.append(p_o)
-            Ts.append(t_o)
-            r2x.append((t_o @ t_o) * (p_o @ p_o) / ssx_total)
+    with span("pls.opls.filter"):
+        x_elements["filter"] += 3 * X.numel()
+        ssx_total = (X * X).sum()
+        Ws, Ps, Ts, r2x = [], [], [], []
+        with _prec_ctx(precision):
+            Xc = X
+            for _ in range(n_ortho):
+                with span("pls.opls.filter.component"):
+                    x_elements["filter"] += 5 * Xc.numel()  # the five products below
+                    w = _predictive_weight(Xc, Y, power_iters, M)
+                    t = Xc @ w
+                    p = (Xc.T @ t) / (t @ t)
+                    w_o = p - (w @ p) * w
+                    w_o = w_o / torch.sqrt(w_o @ w_o)
+                    t_o = Xc @ w_o
+                    p_o = (Xc.T @ t_o) / (t_o @ t_o)
+                    Xc = _remove(Xc, t_o, p_o, "filter")
+                    Ws.append(w_o)
+                    Ps.append(p_o)
+                    Ts.append(t_o)
+                    r2x.append((t_o @ t_o) * (p_o @ p_o) / ssx_total)
 
     def stack(vs, n):
         return torch.stack(vs, 1) if vs else X.new_zeros((n, 0))
@@ -105,13 +138,15 @@ def fit_opls(
 def correct(ofit: OPLSFit, X_new: torch.Tensor):
     """The orthogonal filter on new data, in component order: returns
     (X_filtered, T_o_new (n, n_ortho))."""
-    Xc, W_o, P_o = _promote(X_new, ofit.W_o, ofit.P_o)
-    Ts = []
-    for j in range(W_o.shape[1]):
-        t_o = Xc @ W_o[:, j]
-        Xc = Xc - torch.outer(t_o, P_o[:, j])
-        Ts.append(t_o)
-    return Xc, torch.stack(Ts, 1) if Ts else Xc.new_zeros((Xc.shape[0], 0))
+    with span("pls.opls.correct"):
+        Xc, W_o, P_o = _promote(X_new, ofit.W_o, ofit.P_o)
+        Ts = []
+        for j in range(W_o.shape[1]):
+            x_elements["correct"] += Xc.numel()  # the product X w_o
+            t_o = Xc @ W_o[:, j]
+            Xc = _remove(Xc, t_o, P_o[:, j], "correct")
+            Ts.append(t_o)
+        return Xc, torch.stack(Ts, 1) if Ts else Xc.new_zeros((Xc.shape[0], 0))
 
 
 def predict(ofit: OPLSFit, X_new: torch.Tensor, comp: int | None = None) -> torch.Tensor:

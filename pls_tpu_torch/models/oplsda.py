@@ -13,6 +13,12 @@ score.
 - `OPLSDAClassifier`: the sklearn protocol on any label values, numpy
   out, computed on its `device` parameter (None: the device of a tensor
   X, else the card), as estimator.py's estimators are.
+
+Spans (`utils.profiling`): `pls.oplsda.fit` around the classifier's whole
+fit, holding `pls.estimator.scale` (the z-scoring), `pls.opls.filter`,
+the predictive `pls.fit` and `pls.oplsda.splot` (the filter applied again
+to the training X, `pls.opls.correct`, and the S-plot's two K-vectors
+read back); `pls.oplsda.decision` around the decision values of new data.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from pls_tpu_torch.models.plsda import _with_priors, one_hot
 from pls_tpu_torch.models.predict import _promote
 from pls_tpu_torch.preprocess import ZScorer
 from pls_tpu_torch.types import KERNEL_TYPE1, METHOD
+from pls_tpu_torch.utils.profiling import span
 
 
 def fit_oplsda(
@@ -113,23 +120,26 @@ class OPLSDAClassifier(_EstimatorBase):
         return _sklearn_tags("classifier")
 
     def fit(self, X, y) -> "OPLSDAClassifier":
-        X = self._data(X)
-        self.classes_, idx = np.unique(np.asarray(y), return_inverse=True)
-        n_classes = len(self.classes_)
-        if n_classes < 2:
-            raise ValueError("need at least 2 classes")
-        self._x_scaler = ZScorer.fit(X) if self.scale else None
-        Xz = self._scale_x(X)
-        self._priors = torch.as_tensor(np.bincount(idx, minlength=n_classes) / len(idx),
-                                       dtype=Xz.dtype, device=Xz.device)
-        self._fit = fit_oplsda(Xz, torch.as_tensor(idx, device=Xz.device), n_classes,
-                               self.n_ortho, self.n_components, self.method,
-                               power_iters=self.power_iters, precision=self.precision)
-        # the S-plot's two K-vectors now, so that the (N, K) training
-        # matrix is not kept
-        Xf, _ = correct(self._fit, Xz)
-        t = Xf @ self._fit.pls.R[:, 0].to(Xf.dtype)
-        self._s_plot = tuple(v.cpu().numpy() for v in s_plot(Xf, t))
+        with span("pls.oplsda.fit"):
+            X = self._data(X)
+            self.classes_, idx = np.unique(np.asarray(y), return_inverse=True)
+            n_classes = len(self.classes_)
+            if n_classes < 2:
+                raise ValueError("need at least 2 classes")
+            with span("pls.estimator.scale"):
+                self._x_scaler = ZScorer.fit(X) if self.scale else None
+                Xz = self._scale_x(X)
+            self._priors = torch.as_tensor(np.bincount(idx, minlength=n_classes) / len(idx),
+                                           dtype=Xz.dtype, device=Xz.device)
+            self._fit = fit_oplsda(Xz, torch.as_tensor(idx, device=Xz.device), n_classes,
+                                   self.n_ortho, self.n_components, self.method,
+                                   power_iters=self.power_iters, precision=self.precision)
+            # the S-plot's two K-vectors now, so that the (N, K) training
+            # matrix is not kept
+            with span("pls.oplsda.splot"):
+                Xf, _ = correct(self._fit, Xz)
+                t = Xf @ self._fit.pls.R[:, 0].to(Xf.dtype)
+                self._s_plot = tuple(v.cpu().numpy() for v in s_plot(Xf, t))
         return self
 
     @property
@@ -138,7 +148,8 @@ class OPLSDAClassifier(_EstimatorBase):
         return self._fit.r2x_o.cpu().numpy()
 
     def _decision(self, X) -> torch.Tensor:
-        return decision_values(self._fit, self._scale_x(X)) + self._priors[None, :]
+        with span("pls.oplsda.decision"):
+            return decision_values(self._fit, self._scale_x(X)) + self._priors[None, :]
 
     def decision_function(self, X) -> np.ndarray:
         return self._decision(X).cpu().numpy()

@@ -58,6 +58,12 @@ SPANS = (
     "pls.plsda.fit",  # PLSDAClassifier.fit: labels, priors, indicators, scaling and the fit
     "pls.plsda.decision",  # PLSDAClassifier's decision values of new data
     "pls.estimator.scale",  # an estimator's internal z-scoring of X (ZScorer.fit, transform)
+    "pls.oplsda.fit",  # OPLSDAClassifier.fit: scaling, the filter, the fit and the S-plot
+    "pls.opls.filter",  # the orthogonal filter of an OPLS fit (models/opls._ortho_filter_fit)
+    "pls.opls.filter.component",  # one orthogonal component, the rank-1 update of X included
+    "pls.opls.correct",  # the orthogonal filter applied to given data (models/opls.correct)
+    "pls.oplsda.splot",  # the filter applied again to the training X, and the S-plot
+    "pls.oplsda.decision",  # OPLSDAClassifier's decision values of new data
 )
 
 _NO_SPAN = contextlib.nullcontext()

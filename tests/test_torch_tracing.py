@@ -16,6 +16,15 @@ the exported Chrome trace's `user_annotation` ranges are read back.
   holding one `pls.estimator.scale` and one `pls.fit` with a
   `pls.fit.component` a component, then one `pls.plsda.decision`; the
   traced classifier equals an untraced one bit for bit;
+- `OPLSDAClassifier.fit` then `decision_function` (n_ortho 3, the OPLS-DA
+  cell's CPU cut): one `pls.oplsda.fit` holding `pls.estimator.scale`,
+  `pls.opls.filter` with a `pls.opls.filter.component` an orthogonal
+  component, each with its `pls.fit.eigh`, the predictive `pls.fit`, and
+  `pls.oplsda.splot` with its `pls.opls.correct`; then one
+  `pls.oplsda.decision` with its own `pls.opls.correct`;
+  `models.opls.x_elements` counts what its docstring says, and as much
+  as the X-sized tensors of the operations dispatched inside the filter
+  and `correct` (on the CPU; on the card too, as a `gpu` case);
 - every name emitted, and every name the package's source gives `span`,
   is in `SPANS`;
 - with no profiler collecting, a fit calls no `record_function`, and its
@@ -33,6 +42,8 @@ from pathlib import Path
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from pls_tpu_torch import cli
 from pls_tpu_torch.config import PLSRunConfig, run_pipeline
@@ -44,6 +55,8 @@ from pls_tpu_torch.models.kernel_pls import (
     fit_from_stats_blockdowndated,
     fit_from_stats_downdated,
 )
+from pls_tpu_torch.models import opls
+from pls_tpu_torch.models.oplsda import OPLSDAClassifier
 from pls_tpu_torch.models.plsda import PLSDAClassifier
 from pls_tpu_torch.models.streaming import FoldStatsAccumulator
 from pls_tpu_torch.types import METHOD
@@ -175,6 +188,111 @@ def test_a_plsda_fit_and_its_decision_give_their_spans(tmp_path):
     assert (traced_d == plain_d).all()
     for name in ("W", "P", "Q", "R", "T"):
         assert torch.equal(getattr(plain._fit, name), getattr(traced._fit, name)), name
+
+
+N_ORTHO = 3  # the OPLS-DA cell's CPU cut (portbench/tests/cuts/)
+
+
+def _oplsda_run(X, labels, Xn):
+    clf = OPLSDAClassifier(n_components=2, n_ortho=N_ORTHO, device="cpu").fit(X, labels)
+    return clf, clf.decision_function(Xn)
+
+
+def test_an_oplsda_fit_and_its_decision_give_their_spans(tmp_path):
+    X, _ = _data(n=60, k=12, seed=4)
+    labels = (torch.arange(60) % 3).numpy()
+    plain, plain_d = _oplsda_run(X, labels, X[:7])
+    (traced, traced_d), spans = _traced(lambda: _oplsda_run(X, labels, X[:7]), tmp_path)
+    (whole,) = _named(spans, "pls.oplsda.fit")
+    (scale,) = _named(spans, "pls.estimator.scale")
+    (filt,) = _named(spans, "pls.opls.filter")
+    (fitted,) = _named(spans, "pls.fit")
+    (splot,) = _named(spans, "pls.oplsda.splot")
+    (decision,) = _named(spans, "pls.oplsda.decision")
+    for s in (scale, filt, fitted, splot):
+        assert _inside(s, whole), s
+    assert scale[2] <= filt[1] and filt[2] <= fitted[1] and fitted[2] <= splot[1]
+    comps = _named(spans, "pls.opls.filter.component")
+    eighs = _named(spans, "pls.fit.eigh")
+    assert len(comps) == N_ORTHO and all(_inside(c, filt) for c in comps)
+    assert [sum(_inside(e, c) for e in eighs) for c in comps] == [1] * N_ORTHO
+    assert len(_named(spans, "pls.fit.component")) == 2
+    assert len(eighs) == N_ORTHO + 2  # the filter's, then the predictive fit's
+    corrects = _named(spans, "pls.opls.correct")
+    assert len(corrects) == 2
+    assert [_inside(c, splot) for c in corrects] == [True, False]
+    assert _inside(corrects[1], decision) and decision[1] >= whole[2]
+    assert {s[0] for s in spans} <= set(profiling.SPANS)
+    assert (traced_d == plain_d).all()
+    for name in ("W_o", "P_o", "T_o"):
+        assert torch.equal(getattr(plain._fit, name), getattr(traced._fit, name)), name
+
+
+class _XTraffic(TorchDispatchMode):
+    """The elements of X-sized tensors ((rows, K) for any of `rows`, or
+    the transpose) that the operations PyTorch dispatches read and write,
+    by the step of the filter (`op`) they run in: an operation reads each
+    of its distinct X-sized inputs once and writes each X-sized output
+    once; a view moves nothing.  A kernel launched past the dispatcher
+    (through ctypes, as the port's CUDA kernels are) is not seen."""
+
+    def __init__(self, rows, K):
+        super().__init__()
+        self.shapes = {(n, K) for n in rows} | {(K, n) for n in rows}
+        self.op, self.elements = None, {"filter": 0, "correct": 0}
+
+    def _sized(self, t) -> bool:
+        return isinstance(t, torch.Tensor) and tuple(t.shape) in self.shapes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if self.op and not func.is_view:
+            ins = {id(a): a for a in tree_flatten((args, kwargs))[0] if self._sized(a)}
+            outs = [o for o in tree_flatten(out)[0] if self._sized(o)]
+            self.elements[self.op] += sum(t.numel() for t in [*ins.values(), *outs])
+        return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_x_elements_counts_the_x_sized_reads_and_writes_of_the_filter(device, dtype, monkeypatch):
+    """The counter grows by what its docstring says, and by as much as the
+    X-sized traffic of the operations dispatched inside `pls.opls.filter`
+    and `pls.opls.correct`: no X-sized temporary there goes uncounted and
+    no count lacks its operation."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the filter as the card runs it")
+    n, k, n_new = (60, 12, 7) if device == "cpu" else (1200, 2049, 300)
+    X, _ = _data(n=n, k=k, seed=5)
+    X = X.to(device=device, dtype=dtype)
+    labels = (torch.arange(n) % 3).numpy()
+    mode = _XTraffic((n, n_new), k)
+    span, steps = opls.span, {"pls.opls.filter": "filter", "pls.opls.correct": "correct"}
+
+    @contextlib.contextmanager
+    def counted(name):
+        with span(name):
+            outer, mode.op = mode.op, steps.get(name, mode.op)
+            try:
+                yield
+            finally:
+                mode.op = outer
+
+    monkeypatch.setattr(opls, "span", counted)
+    before = dict(opls.x_elements)
+
+    def grown():
+        return {op: opls.x_elements[op] - before[op] for op in before}
+
+    with mode:
+        clf = OPLSDAClassifier(n_components=2, n_ortho=N_ORTHO, device=device).fit(X, labels)
+        # the filter: ‖X‖² three, then a component's five products, the
+        # outer product's write and the subtraction's three; the S-plot's
+        # correct of the training X: a component's product and its four
+        filt = (9 * N_ORTHO + 3) * n * k
+        assert grown() == mode.elements == {"filter": filt, "correct": 5 * N_ORTHO * n * k}
+        clf.decision_function(X[:n_new])
+    assert grown() == mode.elements == {"filter": filt, "correct": 5 * N_ORTHO * (n + n_new) * k}
 
 
 def test_spans_lists_exactly_the_names_the_package_gives_span():
